@@ -2,15 +2,25 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-with ``nvcc`` (sm_90a), holds each kernel against its plain PyTorch
-version at the main path's shapes, then drives ``repro_torch.solve`` — the
-port's main path, Contour C-2 on the CUDA kernels — on two graphs of the
-paper's sizes and checks the labels against the ``torch`` backend and
-against scipy's connected components.  Every phase prints one JSON line;
-any failed check raises and the script exits non-zero.  The lines before
-the last are the card's name and power limit (as ``nvidia-smi`` prints
-them) and one ``{"kernels": [...]}`` object; the last line is
-``{"ok": true, "device": {...}}``.
+with ``nvcc`` (sm_90a, one ``nvcc`` per library, started together),
+holds each kernel against its plain PyTorch version at the shapes its
+path gives it, then drives the port's paths at the paper's sizes and
+checks their labels against the ``torch`` backend, against the same
+solve on CPU tensors where the kernel's order of updates matters, and
+against scipy's connected components:
+
+* the main path, ``repro_torch.solve(g)`` (Contour C-2 on the ``cuda``
+  kernels), and C-11mm, whose order-1 sweeps run ``scatter_min``;
+* the asynchronous path, ``solve(g, backend="cuda_async")`` on the
+  in-order sweep kernel ``mm2``;
+* the frontier path, ``solve(g, sampling=2, compact_every=2,
+  sampling_strategy=s)`` for every sampling strategy, staged.
+
+Every phase prints one JSON line with its seconds; any failed check
+raises and the script exits non-zero.  The lines before the last are the
+card's name and power limit (as ``nvidia-smi`` prints them) and one
+``{"kernels": [...]}`` object, with each kernel's launches summed over
+the paths; the last line is ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout, on a machine with one CUDA GPU::
 
@@ -27,6 +37,9 @@ import json
 import subprocess
 import sys
 import time
+import warnings
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -35,17 +48,24 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import solve  # noqa: E402
-from repro_torch.connectivity import minmap  # noqa: E402
+from repro_torch import Graph, solve  # noqa: E402
+from repro_torch.connectivity import SAMPLING_STRATEGIES, minmap  # noqa: E402
+from repro_torch.connectivity import frontier as fr  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.contour_mm import blocked, ops  # noqa: E402
+from repro_torch.kernels import _build, contour_mm  # noqa: E402
+from repro_torch.kernels.contour_mm import blocked, kernel, ops  # noqa: E402
 
 DEVICE = "cuda"
 # rmat(22, 16) is the size of the paper's soc-LiveJournal1
 RMAT_EDGE_FACTOR = 16
 # calls per CUDA-event or host-clock timing
 REPS = 20
+# launches per timing of the in-order sweep kernel mm2: one launch walks
+# every edge on one thread and takes seconds at the async path's sizes
+ASYNC_REPS = 3
+# the frontier schedule the repo's drivers run (benchmarks/connectivity.py,
+# examples/quickstart.py)
+FRONTIER = {"sampling": 2, "compact_every": 2}
 # H100 SXM published peaks (NVIDIA data sheet) behind each bound_ms: HBM
 # bandwidth, and the float32 rate outside the tensor cores, the table's
 # closest entry for the kernels' int32 min/compare work
@@ -57,8 +77,13 @@ REPLACES = {
                    "(fused_relax_pallas)",
     "scatter_min": "src/repro/kernels/contour_mm/blocked.py:92 "
                    "(binned_scatter_min_pallas)",
+    "mm2": "src/repro/kernels/contour_mm/kernel.py:53 (mm2_pallas)",
 }
 SOURCE = "src/repro_torch/kernels/contour_mm/csrc/contour_mm.cu"
+MM2_SOURCE = "src/repro_torch/kernels/contour_mm/csrc/mm2.cu"
+# (library, its module) for every kernel library of the port
+LIBRARIES = ((blocked.LIBRARY, blocked), (kernel.LIBRARY, kernel))
+KERNEL_NAMES = ("fused_relax", "scatter_min", "mm2")
 
 
 def emit(obj) -> None:
@@ -121,6 +146,40 @@ def bound(bytes_moved: int, ops: int) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_moved, "ops": ops}
+
+
+def launch_counts() -> dict:
+    return {name: getattr(contour_mm, name).launches
+            for name in KERNEL_NAMES}
+
+
+def host_syncs(fn) -> dict:
+    """Synchronizing operations in one call of ``fn``, as torch's sync
+    debug mode flags them (the device-to-host reads of a solve): the
+    total, and the count at each source line that made one."""
+    sync()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message))
+    return {"total": sum(sites.values()), "sites": dict(sites)}
+
+
+def cpu_copy(g) -> Graph:
+    return Graph(src=g.src.cpu(), dst=g.dst.cpu(), n_vertices=g.n_vertices)
+
+
+def same_result(a, b, what: str) -> None:
+    """Labels, iterations, converged and edges_visited, bit for bit."""
+    for field in ("labels", "iterations", "converged", "edges_visited"):
+        if not torch.equal(getattr(a, field).cpu(), getattr(b, field).cpu()):
+            raise AssertionError(f"{what}: {field} differs")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -250,6 +309,73 @@ def phase_kernels(g, star) -> dict:
     return {"fused_relax": fused, "scatter_min": scatter}
 
 
+def phase_mm2(small, full) -> dict:
+    """Phase 3b: ``mm2`` against ``mm2_plain``, then its times.
+
+    ``small`` and ``full`` map names to graphs.  On the small ones:
+    identity labels and one mid-run state, with and without
+    ``edge_limit``; an endpoint outside ``[0, n)`` must raise.  On the
+    full-size ones (the async path's): the first sweep, where the plain
+    Python loop takes seconds, then ``ASYNC_REPS`` timed launches.
+    """
+    err, checks = 0, 0
+    for g in small.values():
+        for L in c2_states(g, 1):
+            for limit in (None, g.n_edges // 2):
+                a = kernel.mm2(L, g.src, g.dst, edge_limit=limit)
+                b = kernel.mm2_plain(L, g.src, g.dst, limit)
+                sync()
+                err = max(err, max_abs_err(a, b))
+                checks += 1
+    g = next(iter(small.values()))
+    bad = g.src.clone()
+    bad[g.n_edges // 2] = g.n_vertices
+    L0 = torch.arange(g.n_vertices, dtype=torch.int32, device=g.device)
+    if not raises_index_error(lambda: kernel.mm2(L0, bad, g.dst)):
+        raise AssertionError("mm2 took an id outside [0, n)")
+    checks += 1
+    shapes = {}
+    for name, g in full.items():
+        L0 = torch.arange(g.n_vertices, dtype=torch.int32, device=g.device)
+        a = kernel.mm2(L0, g.src, g.dst, check=False)
+        sync()
+        t0 = time.perf_counter()
+        b = kernel.mm2_plain(L0, g.src, g.dst)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(err, max_abs_err(a, b))
+        checks += 1
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ASYNC_REPS):
+            kernel.mm2(L0, g.src, g.dst, check=False)
+        end.record()
+        sync()
+        n, m = g.n_vertices, g.n_edges
+        shapes[name] = {
+            "shape": {"n": n, "m": m}, "plain_ms": plain_ms,
+            "ms": start.elapsed_time(end) / ASYNC_REPS,
+            # read src, dst and L once, write L once; per edge one min for
+            # z and four compares
+            **bound(8 * m + 8 * n, 5 * m),
+        }
+        shapes[name]["us_per_edge"] = shapes[name]["ms"] * 1e3 / m
+        del a, b
+    if err:
+        raise AssertionError(f"mm2 differs from mm2_plain: {err}")
+    emit({"phase": "mm2_vs_plain", "checks": checks, "max_abs_err": err,
+          "full_size": shapes})
+    first = next(iter(shapes.values()))
+    return {"name": "mm2", "route": "cuda", "source": MM2_SOURCE,
+            "replaces": REPLACES["mm2"], "max_abs_err": err,
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            # no PyTorch call computes an in-order sequential sweep
+            "library_ms": None, "shape": first["shape"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "bytes": first["bytes"], "ops": first["ops"]}
+
+
 def iteration_parts(g, L) -> dict:
     """Device ms of each step of one C-2 iteration at labels ``L``."""
     return {
@@ -299,13 +425,12 @@ def drive(g, name: str, variant: str, reference: np.ndarray) -> dict:
     """One main-path solve with the launch counts read around it."""
     torch.cuda.reset_peak_memory_stats()
     sync()
-    blocked.reset_launch_counts()
+    contour_mm.reset_launch_counts()
     t0 = time.perf_counter()
     res = solve(g, variant=variant)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"fused_relax": blocked.fused_relax.launches,
-                "scatter_min": blocked.scatter_min.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     plain = solve(g, variant=variant, backend="torch")
     sync()
@@ -325,6 +450,7 @@ def drive(g, name: str, variant: str, reference: np.ndarray) -> dict:
     out = {"phase": "main_path", "graph": name, "variant": variant,
            "n": g.n_vertices, "m": g.n_edges, "wall_s": wall,
            "wall_warm_s": wall_warm,
+           "host_syncs": host_syncs(lambda: solve(g, variant=variant)),
            "iterations": int(res.iterations),
            "edges_visited": float(res.edges_visited),
            "edges_per_s": float(res.edges_visited) / wall,
@@ -340,11 +466,133 @@ def drive(g, name: str, variant: str, reference: np.ndarray) -> dict:
     return out
 
 
+def drive_async(g, name: str, reference: np.ndarray, options: dict,
+                on_cpu: bool) -> dict:
+    """One ``cuda_async`` solve with the launch counts read around it.
+
+    Its labels must equal scipy's; with ``on_cpu`` the same solve on CPU
+    tensors (through ``mm2_plain``) must give the same labels,
+    iterations, converged and edges_visited, bit for bit: the in-order
+    sweep's result depends on the order of its updates.
+    """
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    contour_mm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(g, backend="cuda_async", **options)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(res.converged):
+        raise AssertionError(f"{name} cuda_async {options}: not converged")
+    if not np.array_equal(res.labels.cpu().numpy(), reference):
+        raise AssertionError(f"{name} cuda_async {options}: labels differ "
+                             "from scipy")
+    t0 = time.perf_counter()
+    solve(g, backend="cuda_async", **options)
+    sync()
+    wall_warm = time.perf_counter() - t0
+    out = {"phase": "async_path", "graph": name, "options": options,
+           "n": g.n_vertices, "m": g.n_edges, "wall_s": wall,
+           "wall_warm_s": wall_warm, "iterations": int(res.iterations),
+           "edges_visited": float(res.edges_visited),
+           "edges_per_s": float(res.edges_visited) / wall,
+           "peak_bytes": peak, "launches": launches,
+           "provenance": list(res.provenance or ()),
+           "n_components": res.n_components}
+    if on_cpu:
+        t0 = time.perf_counter()
+        cpu = solve(cpu_copy(g), backend="cuda_async", **options)
+        out["cpu_solve_s"] = time.perf_counter() - t0
+        same_result(res, cpu, f"{name} cuda_async {options} against CPU "
+                    "tensors")
+    emit(out)
+    return out
+
+
+def frontier_parts(g) -> dict:
+    """Device ms of the frontier's steps at the full edge list, with the
+    labels of one C-2 iteration: each strategy's preparation (and the
+    two halves of kout's occurrence rank), one general contraction, the
+    largest-component filter, the convergence check, and the final
+    compression (CUDA events, mean of ``REPS``)."""
+    n, m = g.n_vertices, g.n_edges
+    L1 = c2_states(g, 1)[1]
+    out = {f"prepare_{s}_ms": time_ms(
+        lambda s=s: fr.prepare_sampling(s, g.src, g.dst, n))
+        for s in SAMPLING_STRATEGIES}
+    # kout's preparation is two occurrence ranks: a stable argsort and a
+    # cummax over m each
+    idx = torch.arange(m, dtype=torch.int64, device=g.device)
+    out["occurrence_rank_ms"] = time_ms(lambda: fr._occurrence_rank(g.src))
+    out["argsort_stable_ms"] = time_ms(
+        lambda: torch.argsort(g.src, stable=True))
+    out["cummax_ms"] = time_ms(lambda: torch.cummax(idx, 0))
+    out["contract_ms"] = time_ms(
+        lambda: fr.contract_edges(L1, g.src, g.dst, m))
+    out["largest_component_filter_ms"] = time_ms(
+        lambda: fr.contract_edges(L1, g.src, g.dst, m, only_label=(
+            fr.largest_component_label(L1, n))))
+    out["converged_check_ms"] = time_ms(
+        lambda: fr.masked_converged_early(L1, g.src, g.dst, m))
+    out["compress_full_ms"] = time_ms(lambda: fr.compress_full(L1))
+    return out
+
+
+def drive_frontier(g, name: str, strategy: str,
+                   reference: np.ndarray) -> dict:
+    """One frontier solve on the default backend, with the launch counts
+    read around it; bit for bit against the ``torch`` backend."""
+    options = dict(FRONTIER, sampling_strategy=strategy)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    contour_mm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(g, **options)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    same_result(res, solve(g, backend="torch", **options),
+                f"{name} {options} against the torch backend")
+    if not bool(res.converged):
+        raise AssertionError(f"{name} {options}: not converged")
+    if not np.array_equal(res.labels.cpu().numpy(), reference):
+        raise AssertionError(f"{name} {options}: labels differ from scipy")
+    out = {"phase": "frontier_path", "graph": name, "options": options,
+           "n": g.n_vertices, "m": g.n_edges, "wall_s": wall,
+           "wall_warm_ms": host_ms(lambda: solve(g, **options)),
+           "host_syncs": host_syncs(lambda: solve(g, **options)),
+           "iterations": int(res.iterations),
+           "edges_visited": float(res.edges_visited),
+           "edges_per_s": float(res.edges_visited) / wall,
+           "peak_bytes": peak, "launches": launches,
+           "provenance": list(res.provenance or ())}
+    emit(out)
+    return out
+
+
+def build_all() -> dict:
+    """Build every kernel library, one ``nvcc`` each, all at once."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(lambda lib: lib[1].load_library(), LIBRARIES))
+    return {name: {"sources": [str(p.relative_to(ROOT))
+                               for p in module.SOURCES],
+                   "ptxas": [ln.strip() for ln in
+                             _build.BUILD_LOGS.get(name, "").splitlines()
+                             if "registers" in ln or "spill" in ln]}
+            for name, module in LIBRARIES}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rmat-scale", type=int, default=22)
     ap.add_argument("--delaunay-scale", type=int, default=24)
     ap.add_argument("--star-scale", type=int, default=20)
+    ap.add_argument("--async-rmat-scale", type=int, default=20)
+    ap.add_argument("--async-delaunay-scale", type=int, default=21)
+    ap.add_argument("--check-scale", type=int, default=16)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -361,43 +609,71 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "seconds": time.perf_counter() - t0})
 
-    # 2. build every kernel of the path from the checkout's sources
+    # 2. build every kernel of the paths from the checkout's sources
     t0 = time.perf_counter()
-    blocked.load_library()
-    log = _build.BUILD_LOGS.get(blocked.LIBRARY, "")
-    emit({"phase": "build", "library": blocked.LIBRARY,
-          "sources": [str(p.relative_to(ROOT)) for p in blocked.SOURCES],
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln],
+    libraries = build_all()
+    emit({"phase": "build", "libraries": libraries,
           "seconds": time.perf_counter() - t0})
 
     # graphs: the sizes of the paper's soc-LiveJournal1 and delaunay_n24
+    # for the main and frontier paths, smaller ones for the async path
+    # (within the reference scalar kernel's own n <= 3,145,728) and for
+    # the mm2 checks against its plain Python loop
     t0 = time.perf_counter()
-    rmat = gen.rmat(args.rmat_scale, edge_factor=RMAT_EDGE_FACTOR,
-                    device=DEVICE)
-    t_rmat = time.perf_counter() - t0
-    delaunay = gen.delaunay_like(args.delaunay_scale, device=DEVICE)
-    star = gen.star(1 << args.star_scale, device=DEVICE)
+    seconds = {}
+
+    def make(name, fn):
+        t = time.perf_counter()
+        g = fn()
+        seconds[name] = time.perf_counter() - t
+        return g
+
     rmat_name = f"rmat({args.rmat_scale},{RMAT_EDGE_FACTOR})"
     delaunay_name = f"delaunay_like({args.delaunay_scale})"
+    rmat = make(rmat_name, lambda: gen.rmat(
+        args.rmat_scale, edge_factor=RMAT_EDGE_FACTOR, device=DEVICE))
+    delaunay = make(delaunay_name, lambda: gen.delaunay_like(
+        args.delaunay_scale, device=DEVICE))
+    star = make("star", lambda: gen.star(1 << args.star_scale,
+                                         device=DEVICE))
+    async_graphs = {
+        f"delaunay_like({args.async_delaunay_scale})": make(
+            "async_delaunay", lambda: gen.delaunay_like(
+                args.async_delaunay_scale, device=DEVICE)),
+        f"rmat({args.async_rmat_scale},{RMAT_EDGE_FACTOR})": make(
+            "async_rmat", lambda: gen.rmat(
+                args.async_rmat_scale, edge_factor=RMAT_EDGE_FACTOR,
+                device=DEVICE)),
+    }
+    check_graphs = {
+        f"delaunay_like({args.check_scale})": gen.delaunay_like(
+            args.check_scale, device=DEVICE),
+        f"rmat({args.check_scale},{RMAT_EDGE_FACTOR})": gen.rmat(
+            args.check_scale, edge_factor=RMAT_EDGE_FACTOR, device=DEVICE),
+    }
     emit({"phase": "graphs", "seconds": time.perf_counter() - t0,
-          "rmat_seconds": t_rmat,
-          rmat_name: [rmat.n_vertices, rmat.n_edges],
-          delaunay_name: [delaunay.n_vertices, delaunay.n_edges]})
+          "seconds_each": seconds,
+          **{name: [g.n_vertices, g.n_edges] for name, g in
+             [(rmat_name, rmat), (delaunay_name, delaunay),
+              *async_graphs.items(), *check_graphs.items()]}})
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     kernels = phase_kernels(rmat, star)
     del star
+    kernels["mm2"] = phase_mm2(check_graphs, async_graphs)
+    del check_graphs
     emit({"phase": "kernels_vs_plain_done",
           "seconds": time.perf_counter() - t0})
 
-    # 4. the main path at real size; 5. the second kernel on the main
-    # entry point (C-11mm's order-1 warm-up sweeps)
     t0 = time.perf_counter()
     ref_rmat = scipy_labels(rmat)
     ref_delaunay = scipy_labels(delaunay)
+    ref_async = {name: scipy_labels(g) for name, g in async_graphs.items()}
     emit({"phase": "scipy_reference", "seconds": time.perf_counter() - t0})
+
+    # 4. the main path at real size; 5. the second kernel on the main
+    # entry point (C-11mm's order-1 warm-up sweeps)
     t0 = time.perf_counter()
     runs = [drive(delaunay, delaunay_name, "C-2", ref_delaunay),
             drive(rmat, rmat_name, "C-2", ref_rmat)]
@@ -409,9 +685,42 @@ def main(argv=None) -> int:
     runs.append(c11)
     emit({"phase": "main_path_done", "seconds": time.perf_counter() - t0})
 
-    # 6. the kernels line: launches summed over the main-path runs
+    # 6. the async path: cuda_async on the in-order kernel; the first
+    # graph's solve also runs on CPU tensors, through mm2_plain
+    t0 = time.perf_counter()
+    async_runs = [drive_async(g, name, ref_async[name], {}, on_cpu=i == 0)
+                  for i, (name, g) in enumerate(async_graphs.items())]
+    if not all(r["launches"]["mm2"] > 0 for r in async_runs):
+        raise AssertionError("the async path did not launch mm2")
+    runs += async_runs
+    emit({"phase": "async_path_done", "seconds": time.perf_counter() - t0})
+
+    # 7. the frontier path, staged at the paper's sizes, every strategy;
+    # and cuda_async under the frontier
+    t0 = time.perf_counter()
+    frontier_runs = [drive_frontier(g, name, strategy, ref)
+                     for strategy in SAMPLING_STRATEGIES
+                     for name, g, ref in
+                     ((delaunay_name, delaunay, ref_delaunay),
+                      (rmat_name, rmat, ref_rmat))]
+    if not all(r["launches"]["fused_relax"] > 0 for r in frontier_runs):
+        raise AssertionError("the frontier path did not launch fused_relax")
+    for name, g in ((delaunay_name, delaunay), (rmat_name, rmat)):
+        emit({"phase": "frontier_parts", "graph": name,
+              **frontier_parts(g)})
+    name, g = next(iter(async_graphs.items()))
+    async_frontier = drive_async(g, name, ref_async[name], FRONTIER,
+                                 on_cpu=True)
+    if async_frontier["launches"]["mm2"] <= 0:
+        raise AssertionError("cuda_async under the frontier did not launch "
+                             "mm2")
+    runs += frontier_runs + [async_frontier]
+    emit({"phase": "frontier_path_done",
+          "seconds": time.perf_counter() - t0})
+
+    # 8. the kernels line: launches summed over every path's runs
     line = []
-    for name in ("fused_relax", "scatter_min"):
+    for name in KERNEL_NAMES:
         k = dict(kernels[name])
         k["launches"] = sum(r["launches"][name] for r in runs)
         k["max_abs_diff"] = k["max_abs_err"]

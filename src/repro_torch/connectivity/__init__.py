@@ -10,7 +10,16 @@
 
     bigger = graph.add_edges(new_src, new_dst)
     result2 = solve(bigger, warm_start=result)  # incremental
+
+    # the work-adaptive frontier, on any backend
+    solve(graph, sampling=2, compact_every=2, sampling_strategy="kout")
+    solve(graph, backend="cuda_async")          # in-order async sweeps
 """
+from repro_torch.connectivity.frontier import (
+    SAMPLING_STRATEGIES,
+    SamplingStrategy,
+    register_sampling_strategy,
+)
 from repro_torch.connectivity.options import SolveOptions
 from repro_torch.connectivity.result import ComponentResult
 from repro_torch.connectivity.registry import (
@@ -28,11 +37,14 @@ from repro_torch.graphs.structs import Graph
 __all__ = [
     "ComponentResult",
     "Graph",
+    "SAMPLING_STRATEGIES",
+    "SamplingStrategy",
     "SolveOptions",
     "SolverSpec",
     "VARIANTS",
     "get_solver",
     "list_solvers",
+    "register_sampling_strategy",
     "register_solver",
     "solve",
     "solver_specs",

@@ -17,9 +17,13 @@ The port's counterpart of ``repro.connectivity.contour``.  Variants
 Every sweep goes through ``kernels.contour_mm.ops.mm_relax_backend``.  The
 loop runs on the host: after each iteration it reads one convergence flag
 from the device, so ``iterations`` is the first converged iteration,
-exactly as in the reference's ``lax.while_loop``.  Only the dense
-schedule is ported; the frontier schedule (``sampling`` /
-``compact_every``) comes with the frontier slice.
+exactly as in the reference's ``lax.while_loop``.
+
+``sampling`` / ``compact_every`` enable the work-adaptive frontier
+schedule of ``connectivity.frontier`` (masked realisation; the staged one
+is ``planner.staged``): the same fixed point, with sweeps and the
+convergence check on the live edge prefix only.  ``C-Syn`` stays
+Alg.-1-verbatim and rejects it.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.connectivity import frontier as fr
 from repro_torch.connectivity import minmap as lab
 from repro_torch.kernels.contour_mm import ops as mm_ops
 
@@ -39,50 +44,56 @@ _CM_JUMP_ROUNDS = 10
 
 def _make_step(variant: str, warmup: int, async_compress: int,
                backend: str = "torch", fuse: bool = True):
-    """Return step(L, it, src, dst) -> L_new for the chosen variant.
+    """Return step(L, it, src, dst, limit=None) -> L_new for the variant.
 
     ``it`` is the Python iteration counter; C-11mm and C-1m1m branch on it
-    where the reference used ``lax.cond``.
+    where the reference used ``lax.cond``.  ``limit`` is the frontier
+    bound (None: every edge, the dense schedule).
     """
 
-    def sweep_async(L, src, dst, order, jump_rounds):
+    def relax(L, src, dst, order, limit):
+        return mm_ops.mm_relax_backend(L, src, dst, order=order,
+                                       backend=backend, edge_limit=limit,
+                                       fuse=fuse)
+
+    def sweep_async(L, src, dst, order, jump_rounds, limit):
         """MM^order + pointer-jump recompaction (``async_compress`` extra
         rounds spread freshly lowered labels inside the iteration)."""
-        L = mm_ops.mm_relax_backend(L, src, dst, order=order,
-                                    backend=backend, fuse=fuse)
+        L = relax(L, src, dst, order, limit)
         return lab.pointer_jump(L, rounds=jump_rounds + async_compress)
 
-    def low(L, src, dst):
-        return sweep_async(L, src, dst, 1, 0)
+    def low(L, src, dst, limit):
+        return sweep_async(L, src, dst, 1, 0, limit)
 
-    def high(L, src, dst):
-        return sweep_async(L, src, dst, 2, _CM_JUMP_ROUNDS)
+    def high(L, src, dst, limit):
+        return sweep_async(L, src, dst, 2, _CM_JUMP_ROUNDS, limit)
 
     if variant == "C-Syn":
-        def step(L, it, src, dst):
-            return mm_ops.mm_relax_backend(L, src, dst, order=2,
-                                           backend=backend, fuse=fuse)
+        def step(L, it, src, dst, limit=None):
+            return relax(L, src, dst, 2, limit)
     elif variant == "C-1":
-        def step(L, it, src, dst):
-            return low(L, src, dst)
+        def step(L, it, src, dst, limit=None):
+            return low(L, src, dst, limit)
     elif variant == "C-2":
-        def step(L, it, src, dst):
-            return sweep_async(L, src, dst, 2, 0)
+        def step(L, it, src, dst, limit=None):
+            return sweep_async(L, src, dst, 2, 0, limit)
     elif variant == "C-m":
-        def step(L, it, src, dst):
-            return high(L, src, dst)
+        def step(L, it, src, dst, limit=None):
+            return high(L, src, dst, limit)
     elif variant == "C-11mm":
-        def step(L, it, src, dst):
-            return low(L, src, dst) if it < warmup else high(L, src, dst)
+        def step(L, it, src, dst, limit=None):
+            return (low(L, src, dst, limit) if it < warmup
+                    else high(L, src, dst, limit))
     elif variant == "C-1m1m":
-        def step(L, it, src, dst):
-            return low(L, src, dst) if it % 2 == 0 else high(L, src, dst)
+        def step(L, it, src, dst, limit=None):
+            return (low(L, src, dst, limit) if it % 2 == 0
+                    else high(L, src, dst, limit))
     elif variant.startswith("C-") and variant[2:].isdigit():
         # literal h-order minimum-mapping operator (Definition 3)
         order = int(variant[2:])
 
-        def step(L, it, src, dst):
-            return sweep_async(L, src, dst, order, 0)
+        def step(L, it, src, dst, limit=None):
+            return sweep_async(L, src, dst, order, 0, limit)
     else:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS} "
                          "or literal 'C-<h>'")
@@ -102,25 +113,53 @@ def contour_labels(
     backend: str = "torch",
     sampling: int = 0,
     compact_every: int = 0,
+    sampling_strategy: str = "prefix",
+    sampling_k: int = fr.DEFAULT_SAMPLING_K,
     fuse: bool = True,
 ):
     """Run Contour; returns (labels[n], n_iterations, converged, visited).
 
     Labels converge to the minimum vertex id of each component on the
     device of ``src``.  ``n_iterations`` (int32), ``converged`` (bool) and
-    ``visited`` (float32 ``n_iterations * m``) are 0-d tensors on the same
-    device; ``converged`` is False iff the ``max_iters`` budget ran out.
-    ``backend`` and ``fuse`` choose the kernel of every sweep
-    (``mm_relax_backend``).
+    ``visited`` (float32) are 0-d tensors on the same device;
+    ``converged`` is False iff the ``max_iters`` budget ran out.
+    ``visited`` counts the edges swept: ``n_iterations * m`` on the dense
+    schedule, the float32 sum of the per-sweep frontier bounds when
+    ``sampling``/``compact_every`` enable the frontier schedule.
+    ``sampling_strategy`` (``"prefix"``/``"kout"``/``"bfs"``, fan-in
+    ``sampling_k``) picks the sampling phase's edges.  ``backend`` and
+    ``fuse`` choose the kernel of every sweep (``mm_relax_backend``).
     """
     if warmup < 0 or async_compress < 0:
         raise ValueError("warmup and async_compress must be >= 0, got "
                          f"{warmup} / {async_compress}")
-    mm_ops.require_dense_schedule(sampling, compact_every)
+    if sampling < 0 or compact_every < 0:
+        raise ValueError("sampling and compact_every must be >= 0, got "
+                         f"{sampling} / {compact_every}")
+    adaptive = sampling > 0 or compact_every > 0
+    sync = variant == "C-Syn"
+    if adaptive and sync:
+        raise ValueError(
+            "C-Syn is the Alg.-1-verbatim reference and does not take the "
+            "work-adaptive schedule; use C-2/C-m (or any async variant) "
+            "with sampling/compact_every")
     step = _make_step(variant, warmup, async_compress, backend, fuse)
     device = src.device
     L = lab.resolve_init_labels(init_labels, n_vertices, device, src.dtype)
-    sync = variant == "C-Syn"
+
+    if adaptive:
+        sample_m = None
+        if sampling > 0 and sampling_strategy != "prefix":
+            src, dst, sample_m = fr.prepare_sampling(
+                sampling_strategy, src, dst, n_vertices, sampling_k)
+        L, it, done, visited = fr.adaptive_fixpoint(
+            src, dst, L, step, n_vertices=n_vertices, sampling=sampling,
+            compact_every=compact_every, max_iters=max_iters,
+            sample_m0=sample_m)
+        return (L, torch.tensor(it, dtype=torch.int32, device=device),
+                torch.tensor(done, device=device),
+                torch.tensor(visited, dtype=torch.float32, device=device))
+
     it, done = 0, False
     while not done and it < max_iters:
         L_new = step(L, it, src, dst)
@@ -136,4 +175,3 @@ def contour_labels(
     return (L, torch.tensor(it, dtype=torch.int32, device=device),
             torch.tensor(done, device=device),
             mm_ops.edges_visited(it, int(src.shape[0]), device))
-

@@ -1,23 +1,29 @@
 """Typed options for the port's ``solve()`` facade.
 
 The port's counterpart of ``repro.connectivity.options``, with only the
-fields this slice honours:
+fields the port honours:
 
 * **algorithm selection** — ``algorithm`` (registry name or alias) and
   ``variant`` (Contour's ``C-Syn``/``C-1``/``C-2``/``C-m``/``C-11mm``/
   ``C-1m1m`` or a literal ``C-<h>``);
 * **kernel dispatch** — ``backend``: ``"auto"`` (the heuristic table,
-  which picks ``"cuda"``), ``"cuda"`` (the hand-written kernels) or
-  ``"torch"`` (plain torch scatter-min);
-* **work schedule** — ``sampling``/``compact_every`` must stay 0 (the
-  dense schedule) until the frontier slice;
+  which picks ``"cuda"``), ``"cuda"`` (the synchronous sweep kernels),
+  ``"cuda_async"`` (the in-order asynchronous 2-order sweep kernel; the
+  reference's scalar ``"pallas"``) or ``"torch"`` (plain torch
+  scatter-min);
+* **work schedule** — ``sampling``/``compact_every`` enable the
+  work-adaptive frontier of ``connectivity.frontier``; both 0 (the
+  default) is the paper's dense schedule.  ``sampling_strategy`` picks
+  the sampling phase's edges (``frontier.SAMPLING_STRATEGIES``; ``None``
+  is ``"prefix"``) and ``sampling_k`` the k-out fan-in;
 * ``warm_start`` — the previous solve's labels (or a whole
   :class:`~repro_torch.connectivity.result.ComponentResult`).
 
 The reference's other fields (``mesh``, ``edge_axes``, ``local_rounds``,
-``plan``, ``sampling_strategy``, ``sampling_k``, ``vmem_limit_bytes``,
-the ``oocore_*`` fields) come with the slices that honour them, and
-setting one fails with a ``TypeError``.  ``kernel_fallback`` is left out
+``plan``, ``vmem_limit_bytes``, the ``oocore_*`` fields) come with the
+slices that honour them, and setting one fails with a ``TypeError``.
+``vmem_limit_bytes`` bounded the TPU scalar kernel's whole-L ceiling,
+which ``cuda_async`` does not have.  ``kernel_fallback`` is left out
 on purpose: a kernel that fails on the card raises; it is never retried
 on the plain path behind the caller's back.
 """
@@ -26,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+from repro_torch.connectivity.frontier import get_sampling_strategy
 from repro_torch.connectivity.planner.plan import BACKENDS
 
 
@@ -45,6 +52,8 @@ class SolveOptions:
     async_compress: int = 1                # in-iteration pointer-jump rounds
     sampling: int = 0                      # frontier sample-prefix sweeps
     compact_every: int = 0                 # contraction cadence (0 = dense)
+    sampling_strategy: Optional[str] = None  # None = "prefix"
+    sampling_k: int = 2                    # k-out sampler fan-in per vertex
     warm_start: Optional[Any] = None       # labels or ComponentResult
 
     def replace(self, **updates) -> "SolveOptions":
@@ -65,3 +74,8 @@ class SolveOptions:
             value = getattr(self, field)
             if value < 0:
                 raise ValueError(f"{field} must be >= 0, got {value}")
+        if self.sampling_strategy is not None:
+            get_sampling_strategy(self.sampling_strategy)  # raises on typo
+        if self.sampling_k < 1:
+            raise ValueError(
+                f"sampling_k must be >= 1, got {self.sampling_k}")

@@ -1,4 +1,5 @@
-"""Execution-plan layer of the port (heuristic table only in this slice)."""
+"""Execution-plan layer of the port: the heuristic table, the plan, and
+the staged frontier driver (``planner.staged``)."""
 from repro_torch.connectivity.planner.heuristics import heuristic_plan
 from repro_torch.connectivity.planner.plan import BACKENDS, ExecutionPlan
 

@@ -27,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 _LOCK = threading.Lock()
+# one lock per library, so that two libraries build at the same time
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # name -> nvcc's output (ptxas register / spill report) of the last build
 BUILD_LOGS: Dict[str, str] = {}
@@ -71,8 +73,14 @@ def build(name: str, sources: Sequence[Path]) -> Path:
 
 
 def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
-    """Build (once) and load the library; cached for the process."""
+    """Build (once) and load the library; cached for the process.
+
+    Calls for different libraries may run in parallel threads: each
+    library has its own lock, and ``nvcc`` runs outside the GIL.
+    """
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LOADED.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name, sources)))

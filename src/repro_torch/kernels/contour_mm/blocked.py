@@ -58,7 +58,7 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _check_int32(name: str, t: torch.Tensor, device: torch.device) -> None:
+def check_int32(name: str, t: torch.Tensor, device: torch.device) -> None:
     if t.dtype != torch.int32 or t.dim() != 1:
         raise TypeError(f"{name} must be a 1-D int32 tensor, got "
                         f"{t.dtype} of shape {tuple(t.shape)}")
@@ -66,7 +66,7 @@ def _check_int32(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name} is on {t.device}, L on {device}")
 
 
-def _on_cuda(L: torch.Tensor) -> bool:
+def on_cuda(L: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if L.device.type == "cuda":
         return True
@@ -81,8 +81,8 @@ def _check_ids(what: str, ids: torch.Tensor, n: int) -> None:
         raise IndexError(f"{what} outside [0, {n})")
 
 
-def _launch(fn, *args, wrapper, check: bool, what: str,
-            L: torch.Tensor) -> None:
+def launch(fn, *args, wrapper, check: bool, what: str,
+           L: torch.Tensor) -> None:
     """Launch ``fn`` on the current stream and count it on ``wrapper``;
     with ``check``, wait for it and raise IndexError if the kernel met an
     id outside ``[0, len(L))``."""
@@ -98,7 +98,7 @@ def _launch(fn, *args, wrapper, check: bool, what: str,
         raise IndexError(f"{what} outside [0, {n})")
 
 
-def _edge_count(m: int, edge_limit) -> int:
+def edge_count(m: int, edge_limit) -> int:
     if edge_limit is None:
         return m
     return max(0, min(m, int(edge_limit)))
@@ -113,7 +113,7 @@ def fused_relax_plain(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                       edge_limit=None) -> torch.Tensor:
     """Plain torch version of :func:`fused_relax` (the same function)."""
     n = int(L.shape[0])
-    m = _edge_count(int(src.shape[0]), edge_limit)
+    m = edge_count(int(src.shape[0]), edge_limit)
     src, dst = src[:m], dst[:m]
     _check_ids(_FUSED_IDS, torch.cat([src, dst]), n)
     ls, ld = L[src], L[dst]
@@ -136,22 +136,22 @@ def fused_relax(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     ``check=False`` skips such an edge instead and does not wait for the
     kernel.
     """
-    _check_int32("L", L, L.device)
-    _check_int32("src", src, L.device)
-    _check_int32("dst", dst, L.device)
+    check_int32("L", L, L.device)
+    check_int32("src", src, L.device)
+    check_int32("dst", dst, L.device)
     if src.shape != dst.shape:
         raise ValueError(f"src/dst shape mismatch: {tuple(src.shape)} vs "
                          f"{tuple(dst.shape)}")
-    if not _on_cuda(L):
+    if not on_cuda(L):
         return fused_relax_plain(L, src, dst, edge_limit)
     L, src, dst = L.contiguous(), src.contiguous(), dst.contiguous()
-    m = _edge_count(int(src.shape[0]), edge_limit)
+    m = edge_count(int(src.shape[0]), edge_limit)
     out = L.clone()
     if m > 0:
         lib = load_library()
-        _launch(lib.contour_fused_relax, L.data_ptr(), out.data_ptr(),
-                src.data_ptr(), dst.data_ptr(), m, wrapper=fused_relax,
-                check=check, what=_FUSED_IDS, L=L)
+        launch(lib.contour_fused_relax, L.data_ptr(), out.data_ptr(),
+               src.data_ptr(), dst.data_ptr(), m, wrapper=fused_relax,
+               check=check, what=_FUSED_IDS, L=L)
     return out
 
 
@@ -182,9 +182,9 @@ def scatter_min(L: torch.Tensor, targets: torch.Tensor, values: torch.Tensor,
     outside ``[0, len(L))`` raises IndexError; on the card,
     ``check=False`` skips such an update instead and does not wait for
     the kernel."""
-    _check_int32("L", L, L.device)
-    _check_int32("targets", targets, L.device)
-    _check_int32("values", values, L.device)
+    check_int32("L", L, L.device)
+    check_int32("targets", targets, L.device)
+    check_int32("values", values, L.device)
     if targets.shape != values.shape:
         raise ValueError(f"targets/values shape mismatch: "
                          f"{tuple(targets.shape)} vs {tuple(values.shape)}")
@@ -195,7 +195,7 @@ def scatter_min(L: torch.Tensor, targets: torch.Tensor, values: torch.Tensor,
                             f"{tuple(valid.shape)}")
         if valid.device != L.device:
             raise ValueError(f"valid is on {valid.device}, L on {L.device}")
-    if not _on_cuda(L):
+    if not on_cuda(L):
         return scatter_min_plain(L, targets, values, valid)
     L, targets, values = L.contiguous(), targets.contiguous(), \
         values.contiguous()
@@ -205,17 +205,12 @@ def scatter_min(L: torch.Tensor, targets: torch.Tensor, values: torch.Tensor,
     out = L.clone()
     if k > 0:
         lib = load_library()
-        _launch(lib.contour_scatter_min, L.data_ptr(), out.data_ptr(),
-                targets.data_ptr(), values.data_ptr(),
-                None if valid is None else valid.data_ptr(), k,
-                wrapper=scatter_min, check=check, what=_SCATTER_IDS, L=L)
+        launch(lib.contour_scatter_min, L.data_ptr(), out.data_ptr(),
+               targets.data_ptr(), values.data_ptr(),
+               None if valid is None else valid.data_ptr(), k,
+               wrapper=scatter_min, check=check, what=_SCATTER_IDS, L=L)
     return out
 
 
 scatter_min.launches = 0
 
-
-def reset_launch_counts() -> None:
-    """Set both kernels' launch counts to 0."""
-    fused_relax.launches = 0
-    scatter_min.launches = 0

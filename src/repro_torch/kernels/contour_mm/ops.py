@@ -1,18 +1,21 @@
 """Backend dispatch for the min-mapping sweep, and the dense fixpoint.
 
-The port's counterpart of ``repro.kernels.contour_mm.ops``.  Two backends
-realise the same ``MM^h`` sweep, bit for bit:
+The port's counterpart of ``repro.kernels.contour_mm.ops``.  Three
+backends realise the sweep:
 
-* ``"torch"`` — ``minmap.mm_relax``, plain torch scatter-min (the
+* ``"torch"``      — ``minmap.mm_relax``, plain torch scatter-min (the
   reference's ``"xla"``);
-* ``"cuda"``  — the hand-written kernels of ``blocked.py`` (the
+* ``"cuda"``       — the hand-written kernels of ``blocked.py`` (the
   reference's ``"pallas_blocked"``): order 2 runs ``fused_relax`` at any
   ``n``, every other order runs ``mm_update_stream`` + ``scatter_min``.
+  Bit for bit the synchronous ``MM^h`` sweep, as ``"torch"``;
+* ``"cuda_async"`` — the in-order asynchronous 2-order sweep of
+  ``kernel.py`` (``mm2``, the reference's scalar ``"pallas"``): each edge
+  sees the labels earlier edges lowered, so the result depends on the
+  edge order.  Order 2 only.
 
-``"auto"`` is ``"cuda"``.  On the card it always launches the kernels; on
-CPU tensors the kernel wrappers run their plain versions.  The
-reference's scalar ``"pallas"`` backend (``mm2_pallas``) has no
-counterpart yet.
+``"auto"`` is ``"cuda"``.  On the card the kernels always launch; on CPU
+tensors the kernel wrappers run their plain versions.
 
 :func:`contour_cc_fixpoint` is ``contour.contour_labels`` with the
 literal ``C-<order>`` variant: a host loop with one device-to-host read
@@ -26,7 +29,9 @@ import torch
 from repro_torch.connectivity import minmap as lab
 from repro_torch.connectivity.planner.plan import BACKENDS
 from repro_torch.graphs.structs import Graph
-from repro_torch.kernels.contour_mm.blocked import fused_relax, scatter_min
+from repro_torch.kernels.contour_mm.blocked import (edge_count, fused_relax,
+                                                    scatter_min)
+from repro_torch.kernels.contour_mm.kernel import mm2
 
 mm_update_stream = lab.mm_update_stream
 
@@ -46,9 +51,10 @@ def mm_relax_backend(
     ``edge_limit`` (an int or 0-d tensor) is the frontier bound: only the
     first ``edge_limit`` edges contribute updates.  The ``torch`` backend
     masks the rest to ``(0, 0)`` self-loops as the reference does;
-    ``fused_relax`` skips them; the scatter-min route marks their updates
-    invalid.  ``fuse=False`` sends an order-2 sweep through the
-    scatter-min kernel instead of the fused one.
+    ``fused_relax`` and ``mm2`` do not visit them; the scatter-min route
+    drops their updates.  ``fuse=False`` sends an order-2 ``cuda`` sweep
+    through the scatter-min kernel instead of the fused one; it does not
+    apply to ``cuda_async``, which is order 2 only.
 
     The kernels are launched with ``check=False``: the graph's endpoints
     were checked when the ``Graph`` was built, and a sweep keeps labels in
@@ -58,26 +64,29 @@ def mm_relax_backend(
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if order < 1:
         raise ValueError(f"order must be >= 1, got {order}")
-    m = int(src.shape[0])
-    edge_mask = None
-    if edge_limit is not None:
-        edge_mask = torch.arange(m, dtype=torch.int32,
-                                 device=src.device) < edge_limit
-
+    if backend == "cuda_async":
+        if order != 2:
+            raise ValueError(
+                "the in-order 'cuda_async' kernel is 2-order only; use "
+                "'cuda' or 'torch' for order != 2")
+        return mm2(L, src, dst, edge_limit=edge_limit, check=False)
     if backend == "torch":
-        if edge_mask is not None:
+        if edge_limit is not None:
             # self-loops at vertex 0 are min-mapping no-ops
-            src = torch.where(edge_mask, src, 0)
-            dst = torch.where(edge_mask, dst, 0)
+            live = torch.arange(src.shape[0], dtype=torch.int32,
+                                device=src.device) < edge_limit
+            src = torch.where(live, src, 0)
+            dst = torch.where(live, dst, 0)
         return lab.mm_relax(L, src, dst, order)
     # cuda ("auto" is cuda)
     if fuse and order == 2:
         return fused_relax(L, src, dst, edge_limit=edge_limit, check=False)
+    if edge_limit is not None:
+        # the edges past the bound make no updates at all
+        k = edge_count(int(src.shape[0]), edge_limit)
+        src, dst = src[:k], dst[:k]
     t, v = lab.mm_update_stream(L, src, dst, order)
-    # the stream is 2*order concatenated [m] segments, each inheriting the
-    # per-edge liveness
-    valid = None if edge_mask is None else edge_mask.repeat(2 * order)
-    return scatter_min(L, t, v, valid=valid, check=False)
+    return scatter_min(L, t, v, check=False)
 
 
 def edges_visited(it: int, m: int, device) -> torch.Tensor:
@@ -88,17 +97,6 @@ def edges_visited(it: int, m: int, device) -> torch.Tensor:
     ``it * m`` passes ``2**24``.
     """
     return torch.tensor(it, dtype=torch.float32, device=device) * m
-
-
-def require_dense_schedule(sampling: int, compact_every: int) -> None:
-    """Reject the frontier schedule, which this slice does not port."""
-    if sampling < 0 or compact_every < 0:
-        raise ValueError("sampling and compact_every must be >= 0, got "
-                         f"{sampling} / {compact_every}")
-    if sampling > 0 or compact_every > 0:
-        raise NotImplementedError(
-            "the work-adaptive frontier schedule (sampling/compact_every) "
-            "comes with the port's frontier slice; use the dense schedule")
 
 
 def contour_mm_step(

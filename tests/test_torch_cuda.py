@@ -14,7 +14,8 @@ from repro_torch import solve  # noqa: E402
 from repro_torch.connectivity import minmap  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
 from repro_torch.graphs.oracle import connected_components_oracle  # noqa: E402
-from repro_torch.kernels.contour_mm import blocked  # noqa: E402
+from repro_torch.kernels import contour_mm  # noqa: E402
+from repro_torch.kernels.contour_mm import blocked, kernel  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -40,7 +41,7 @@ def test_kernels_match_plain(cuda, graph):
     g = {"rmat": lambda: gen.rmat(14, seed=7, device=cuda),
          "grid": lambda: gen.grid2d(100, 120, device=cuda),
          "star": lambda: gen.star(5000, seed=1, device=cuda)}[graph]()
-    blocked.reset_launch_counts()
+    contour_mm.reset_launch_counts()
     gen_ = torch.Generator(device=cuda).manual_seed(0)
     for L in _states(g):
         for limit in (None, 0, g.n_edges // 2):
@@ -66,7 +67,7 @@ def test_solve_on_the_card_launches_the_kernels(cuda):
     want = connected_components_oracle(*g.to_numpy())
     for variant, kernel in (("C-2", blocked.fused_relax),
                             ("C-11mm", blocked.scatter_min)):
-        blocked.reset_launch_counts()
+        contour_mm.reset_launch_counts()
         res = solve(g, variant=variant)
         assert kernel.launches > 0
         plain = solve(g, variant=variant, backend="torch")
@@ -115,3 +116,79 @@ def test_kernels_reject_out_of_range_ids_on_the_card(cuda):
         # unchecked, the kernel still touches nothing outside L
         assert call(False).tolist() == skipped
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("graph", ["rmat", "grid", "path"])
+def test_mm2_matches_plain(cuda, graph):
+    g = {"rmat": lambda: gen.rmat(12, seed=7, device=cuda),
+         "grid": lambda: gen.grid2d(60, 70, device=cuda),
+         "path": lambda: gen.path(5000, seed=2, device=cuda)}[graph]()
+    contour_mm.reset_launch_counts()
+    for L in _states(g, count=2):
+        for limit in (None, 0, g.n_edges // 3):
+            assert torch.equal(
+                kernel.mm2(L, g.src, g.dst, edge_limit=limit),
+                kernel.mm2_plain(L.cpu(), g.src.cpu(), g.dst.cpu(),
+                                 limit).to(cuda))
+    torch.cuda.synchronize()
+    # edge_limit=0 launches nothing
+    assert kernel.mm2.launches == 3 * 2
+
+
+def test_mm2_rejects_out_of_range_ids_on_the_card(cuda):
+    def i32(*ids):
+        return torch.tensor(ids, dtype=torch.int32, device=cuda)
+
+    L = torch.arange(8, dtype=torch.int32, device=cuda)
+    cases = [
+        (lambda c: kernel.mm2(L, i32(0, 8), i32(1, 2), check=c),
+         [0, 0, 2, 3, 4, 5, 6, 7]),
+        (lambda c: kernel.mm2(L, i32(1, 5), i32(-1, 2), check=c),
+         [0, 1, 2, 3, 4, 2, 6, 7]),
+        (lambda c: kernel.mm2(i32(0, 1, 3, -1, 4, 5, 6, 7), i32(2, 2),
+                              i32(2, 2), check=c),
+         [0, 1, -1, -1, 4, 5, 6, 7]),
+    ]
+    for call, skipped in cases:
+        with pytest.raises(IndexError, match=r"outside \[0, 8\)"):
+            call(True)
+        # unchecked, the kernel still touches nothing outside L
+        assert call(False).tolist() == skipped
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("options", [
+    {"variant": "C-2"}, {"variant": "C-Syn"},
+    {"variant": "C-2", "sampling": 2, "compact_every": 2},
+    {"variant": "C-m", "sampling": 2, "compact_every": 1,
+     "sampling_strategy": "kout"},
+])
+def test_solve_cuda_async_on_the_card_matches_cpu(cuda, options):
+    g = gen.components_mix([gen.path(3000, seed=1, device="cpu"),
+                            gen.rmat(12, seed=2, device="cpu")], seed=3,
+                           device="cpu")
+    contour_mm.reset_launch_counts()
+    on_card = gen.Graph.from_numpy(*g.to_numpy(), device=cuda)
+    res = solve(on_card, backend="cuda_async", **options)
+    assert kernel.mm2.launches > 0
+    on_cpu = solve(g, backend="cuda_async", **options)
+    for field in ("labels", "iterations", "converged", "edges_visited"):
+        assert torch.equal(getattr(res, field).cpu(), getattr(on_cpu, field))
+    want = connected_components_oracle(*g.to_numpy())
+    assert (res.labels.cpu().numpy() == want).all()
+
+
+@pytest.mark.parametrize("strategy", ["prefix", "kout", "bfs"])
+def test_frontier_on_the_card_matches_the_torch_backend(cuda, strategy):
+    g = gen.components_mix([gen.rmat(13, seed=4, device="cpu"),
+                            gen.grid2d(100, 120, device="cpu")], seed=5,
+                           device=cuda)
+    assert g.n_edges >= 1 << 15          # the staged schedule
+    contour_mm.reset_launch_counts()
+    res = solve(g, sampling=2, compact_every=2, sampling_strategy=strategy)
+    assert blocked.fused_relax.launches > 0
+    plain = solve(g, sampling=2, compact_every=2, sampling_strategy=strategy,
+                  backend="torch")
+    for field in ("labels", "iterations", "converged", "edges_visited"):
+        assert torch.equal(getattr(res, field), getattr(plain, field))
+    assert "schedule=staged" in res.provenance[0]

@@ -28,6 +28,7 @@ from repro_torch.connectivity import minmap as mm  # noqa: E402
 from repro_torch.connectivity.planner import heuristic_plan  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import contour_mm  # noqa: E402
 from repro_torch.kernels.contour_mm import blocked, ops, ref  # noqa: E402
 
 
@@ -226,8 +227,13 @@ def test_contour_mm_step_and_fixpoint_match_reference():
     assert bool(out[2]) == bool(ref_out[2])
     assert out[3].dtype == torch.float32
     assert out[3].item() == float(ref_out[3])
-    with pytest.raises(NotImplementedError, match="frontier slice"):
-        ops.contour_cc_fixpoint(port_g, sampling=2)
+    # the frontier schedule, as the reference's bench fixpoint runs it
+    ref_out = ref_ops.contour_cc_fixpoint(g, backend="xla", sampling=2,
+                                          compact_every=2)
+    out = ops.contour_cc_fixpoint(port_g, sampling=2, compact_every=2)
+    _eq(ref_out[0], out[0])
+    assert (int(out[1]), bool(out[2])) == (int(ref_out[1]), bool(ref_out[2]))
+    assert out[3].item() == float(ref_out[3])
 
 
 
@@ -258,7 +264,7 @@ def test_block_ref_matches_reference():
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
-    blocked.reset_launch_counts()
+    contour_mm.reset_launch_counts()
     s, d, states = _states(10, 2)
     L = _t(states[0])
     blocked.fused_relax(L, _t(s), _t(d))

@@ -93,8 +93,8 @@ def test_backends_agree_on_default_options(backend):
 def test_default_solve_records_the_plan():
     _, g = _pair("rmat10")
     res = repro_torch.solve(g)
-    assert res.provenance == ("plan:cuda origin=heuristic fused=1 "
-                              "device=cpu",)
+    assert res.provenance == ("plan:cuda origin=heuristic schedule=masked "
+                              "fused=1 device=cpu",)
     pinned = repro_torch.solve(g, backend="torch")
     assert pinned.provenance[0].startswith("plan:torch origin=pinned")
 
@@ -199,8 +199,12 @@ BAD_OPTIONS = [
     ({"compact_every": -2}, ValueError, "compact_every"),
     ({"variant": "C-7x"}, ValueError, "unknown variant"),
     ({"algorithm": "fastsv"}, ValueError, "unknown algorithm"),
-    ({"sampling": 2}, NotImplementedError, "frontier slice"),
-    ({"compact_every": 4}, NotImplementedError, "frontier slice"),
+    ({"sampling": 2, "variant": "C-Syn"}, ValueError, "C-Syn"),
+    ({"compact_every": 4, "variant": "C-Syn"}, ValueError, "C-Syn"),
+    ({"sampling_strategy": "nope"}, ValueError, "sampling_strategy"),
+    ({"sampling_k": 0}, ValueError, "sampling_k"),
+    ({"backend": "cuda_async", "variant": "C-1"}, ValueError,
+     "2-order only"),
 ]
 
 
@@ -213,9 +217,9 @@ def test_option_errors(overrides, err, match):
 
 
 # the reference's fields this slice leaves out: setting one is an error
-OMITTED = ["mesh", "edge_axes", "local_rounds", "plan", "sampling_strategy",
-           "sampling_k", "kernel_fallback", "vmem_limit_bytes",
-           "oocore_chunk_edges", "oocore_round_cap", "oocore_local_iters"]
+OMITTED = ["mesh", "edge_axes", "local_rounds", "plan", "kernel_fallback",
+           "vmem_limit_bytes", "oocore_chunk_edges", "oocore_round_cap",
+           "oocore_local_iters"]
 
 
 @pytest.mark.parametrize("field", OMITTED)
