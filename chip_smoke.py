@@ -14,7 +14,12 @@ against scipy's connected components:
 * the asynchronous path, ``solve(g, backend="cuda_async")`` on the
   in-order sweep kernel ``mm2``;
 * the frontier path, ``solve(g, sampling=2, compact_every=2,
-  sampling_strategy=s)`` for every sampling strategy, staged.
+  sampling_strategy=s)`` for every sampling strategy, staged;
+* the float kernels' entry points, ``fused_rmsnorm(x, w)`` and
+  ``flash_attention(q, k, v)``, at mistral-nemo-12b's widths (d_model
+  5120; 32 heads, 8 KV heads, head dim 128) over 8 x 4096 and 2 x 4096
+  tokens, after ``rmsnorm_rows`` and ``flash_mha`` were held against
+  their plain versions there and at other widths of the repo's models.
 
 Every phase prints one JSON line with its seconds; any failed check
 raises and the script exits non-zero.  The lines before the last are the
@@ -27,8 +32,9 @@ Run from the root of a checkout, on a machine with one CUDA GPU::
     python3 chip_smoke.py
 
 It needs numpy, scipy, torch built for CUDA and ``nvcc``; it imports
-nothing of JAX.  Without a CUDA device it exits with code 1 and prints no
-result.
+nothing of JAX.  float32 matrix products stay float32 (TF32 off), so the
+plain versions are exact references.  Without a CUDA device it exits
+with code 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -52,8 +58,16 @@ from repro_torch import Graph, solve  # noqa: E402
 from repro_torch.connectivity import SAMPLING_STRATEGIES, minmap  # noqa: E402
 from repro_torch.connectivity import frontier as fr  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
-from repro_torch.kernels import _build, contour_mm  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.contour_mm import blocked, kernel, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, mha_ref)
+from repro_torch.kernels.flash_attention import \
+    kernel as flash_kernel  # noqa: E402
+from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
+    fused_rmsnorm, rmsnorm_ref)
+from repro_torch.kernels.fused_rmsnorm import \
+    kernel as rms_kernel  # noqa: E402
 
 DEVICE = "cuda"
 # rmat(22, 16) is the size of the paper's soc-LiveJournal1
@@ -71,6 +85,26 @@ FRONTIER = {"sampling": 2, "compact_every": 2}
 # closest entry for the kernels' int32 min/compare work
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# dense bf16 tensor-core rate: the least time of attention's products
+BF16_TENSOR_OPS_PER_S = 989e12
+# mistral-nemo-12b (src/repro/configs/mistral_nemo_12b.py): d_model, query
+# heads, KV heads, head dim
+NEMO = {"d": 5120, "H": 32, "Hkv": 8, "hd": 128}
+# kernel against plain version in float32, (atol, rtol, rms_rel) by working
+# type: every element within |a - b| <= atol + rtol * |b|, and the whole
+# output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
+# float32 and round once to the working type, so a sound kernel differs
+# from its plain version where the two float32 results straddle a
+# rounding boundary, by one unit in the last place (at most 2**-7 * |b|
+# in bfloat16, inside rtol).  rms_rel holds the output as a whole: a fault
+# of a few thousandths on every element (a key tile skipped, products
+# rounded to bfloat16) stays inside each element's bound where attention's
+# outputs are small (|o| ~ 0.03 at S = 4096) but not inside rms_rel.
+# Readings and a faulty kernel held to these limits: PERF.md
+RMS_TOL = {torch.bfloat16: (1e-2, 1e-2, 5e-4),
+           torch.float32: (1e-5, 1e-5, 1e-5)}
+FLASH_TOL = {torch.bfloat16: (4e-3, 1e-2, 5e-4),
+             torch.float32: (1e-5, 1e-4, 1e-5)}
 
 REPLACES = {
     "fused_relax": "src/repro/kernels/contour_mm/blocked.py:236 "
@@ -78,12 +112,26 @@ REPLACES = {
     "scatter_min": "src/repro/kernels/contour_mm/blocked.py:92 "
                    "(binned_scatter_min_pallas)",
     "mm2": "src/repro/kernels/contour_mm/kernel.py:53 (mm2_pallas)",
+    "rmsnorm_rows": "src/repro/kernels/fused_rmsnorm/kernel.py:31 "
+                    "(rmsnorm_rows)",
+    "flash_mha": "src/repro/kernels/flash_attention/kernel.py:77 "
+                 "(flash_mha)",
 }
 SOURCE = "src/repro_torch/kernels/contour_mm/csrc/contour_mm.cu"
 MM2_SOURCE = "src/repro_torch/kernels/contour_mm/csrc/mm2.cu"
+RMSNORM_SOURCE = "src/repro_torch/kernels/fused_rmsnorm/csrc/rmsnorm.cu"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
 # (library, its module) for every kernel library of the port
-LIBRARIES = ((blocked.LIBRARY, blocked), (kernel.LIBRARY, kernel))
-KERNEL_NAMES = ("fused_relax", "scatter_min", "mm2")
+LIBRARIES = ((blocked.LIBRARY, blocked), (kernel.LIBRARY, kernel),
+             (rms_kernel.LIBRARY, rms_kernel),
+             (flash_kernel.LIBRARY, flash_kernel))
+# every kernel wrapper of the port, by name; each counts its launches
+WRAPPERS = {"fused_relax": blocked.fused_relax,
+            "scatter_min": blocked.scatter_min, "mm2": kernel.mm2,
+            "rmsnorm_rows": rms_kernel.rmsnorm_rows,
+            "flash_mha": flash_kernel.flash_mha}
+KERNEL_NAMES = tuple(WRAPPERS)
 
 
 def emit(obj) -> None:
@@ -132,25 +180,31 @@ def host_ms(fn) -> float:
     return total / REPS * 1e3
 
 
-def raises_index_error(fn) -> bool:
+def raises(fn, error) -> bool:
     try:
         fn()
-    except IndexError:
+    except error:
         return True
     return False
 
 
-def bound(bytes_moved: int, ops: int) -> dict:
+def bound(bytes_moved: int, ops: int, rate: float = ALU_OPS_PER_S) -> dict:
+    """The least time of the work: bytes over the HBM rate against
+    operations over ``rate``."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_moved, "ops": ops}
 
 
 def launch_counts() -> dict:
-    return {name: getattr(contour_mm, name).launches
-            for name in KERNEL_NAMES}
+    return {name: WRAPPERS[name].launches for name in KERNEL_NAMES}
+
+
+def reset_launch_counts() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
 
 
 def host_syncs(fn) -> dict:
@@ -250,7 +304,7 @@ def phase_kernels(g, star) -> dict:
     bad[m // 2] = g.n_vertices
     for call in (lambda: blocked.fused_relax(states[0], bad, g.dst),
                  lambda: blocked.scatter_min(states[0], bad, g.dst)):
-        if not raises_index_error(call):
+        if not raises(call, IndexError):
             raise AssertionError("a kernel took an id outside [0, n)")
         checks += 1
     del bad
@@ -331,7 +385,7 @@ def phase_mm2(small, full) -> dict:
     bad = g.src.clone()
     bad[g.n_edges // 2] = g.n_vertices
     L0 = torch.arange(g.n_vertices, dtype=torch.int32, device=g.device)
-    if not raises_index_error(lambda: kernel.mm2(L0, bad, g.dst)):
+    if not raises(lambda: kernel.mm2(L0, bad, g.dst), IndexError):
         raise AssertionError("mm2 took an id outside [0, n)")
     checks += 1
     shapes = {}
@@ -425,7 +479,7 @@ def drive(g, name: str, variant: str, reference: np.ndarray) -> dict:
     """One main-path solve with the launch counts read around it."""
     torch.cuda.reset_peak_memory_stats()
     sync()
-    contour_mm.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = solve(g, variant=variant)
     sync()
@@ -477,7 +531,7 @@ def drive_async(g, name: str, reference: np.ndarray, options: dict,
     """
     torch.cuda.reset_peak_memory_stats()
     sync()
-    contour_mm.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = solve(g, backend="cuda_async", **options)
     sync()
@@ -547,7 +601,7 @@ def drive_frontier(g, name: str, strategy: str,
     options = dict(FRONTIER, sampling_strategy=strategy)
     torch.cuda.reset_peak_memory_stats()
     sync()
-    contour_mm.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = solve(g, **options)
     sync()
@@ -571,6 +625,231 @@ def drive_frontier(g, name: str, strategy: str,
            "provenance": list(res.provenance or ())}
     emit(out)
     return out
+
+
+def float_err(a: torch.Tensor, b: torch.Tensor, tol: tuple) -> dict:
+    """Kernel output ``a`` against plain output ``b`` in float32, ``tol`` =
+    (atol, rtol, rms_rel): max |a - b|, how far the worst element lies past
+    ``atol + rtol * |b|`` (<= 0 when every element is inside), and
+    rms(a - b) / rms(b) beside its limit ``rms_rel``."""
+    atol, rtol, rms_rel = tol
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    return {"max_abs_err": float(diff.max()),
+            "excess": float((diff - atol - rtol * b.abs()).max()),
+            "rel_rms_err": float(diff.square().mean().sqrt()
+                                 / b.square().mean().sqrt()),
+            "rel_rms_limit": rms_rel,
+            "finite": bool(torch.isfinite(a).all())}
+
+
+def check_close(what: str, err: dict) -> None:
+    if (not err["finite"] or err["excess"] > 0
+            or not err["rel_rms_err"] <= err["rel_rms_limit"]):
+        raise AssertionError(f"{what}: kernel differs from its plain "
+                             f"version: {err}")
+
+
+def randn(shape, dtype, gen_) -> torch.Tensor:
+    return torch.randn(shape, device=DEVICE, generator=gen_).to(dtype)
+
+
+def rmsnorm_bound(rows: int, d: int, dtype) -> dict:
+    # read x, write y, read w (float32); per element a square-add, a
+    # scale and a weight product
+    size = torch.finfo(dtype).bits // 8
+    return bound(2 * rows * d * size + 4 * d, 4 * rows * d)
+
+
+def flash_bound(b, h, hkv, t, s, hd, causal, dtype) -> dict:
+    # q, k, v read once, o written once; two products of 2 * T * S * hd
+    # operations a head, half of them past the diagonal when causal
+    size = torch.finfo(dtype).bits // 8
+    ops = 4 * b * h * t * s * hd // (2 if causal else 1)
+    rate = (BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16
+            else ALU_OPS_PER_S)
+    return bound(size * hd * (2 * b * h * t + 2 * b * hkv * s), ops, rate)
+
+
+def phase_rmsnorm_vs_plain() -> dict:
+    """``rmsnorm_rows`` against ``rmsnorm_rows_plain`` on the card."""
+    gen_ = torch.Generator(device=DEVICE).manual_seed(0)
+    cases = [
+        # mistral-nemo-12b's d_model over 8 x 4096 tokens
+        ("nemo", 32768, NEMO["d"], torch.bfloat16, torch.bfloat16),
+        # yi-6b's d_model, a ragged row count
+        ("yi", 4095, 4096, torch.float32, torch.float32),
+        ("small", 7, 128, torch.float32, torch.float32),
+        ("bf16_x_f32_w", 4096, NEMO["d"], torch.bfloat16,
+         torch.float32),
+    ]
+    out, worst = {}, 0.0
+    for name, rows, d, x_dtype, w_dtype in cases:
+        x = randn((rows, d), x_dtype, gen_)
+        w = randn((d,), w_dtype, gen_)
+        a = rms_kernel.rmsnorm_rows(x, w)
+        b = rms_kernel.rmsnorm_rows_plain(x, w)
+        sync()
+        err = float_err(a, b, RMS_TOL[x_dtype])
+        check_close(f"rmsnorm_rows {name}", err)
+        worst = max(worst, err["max_abs_err"])
+        out[name] = {"shape": [rows, d], "x": str(x_dtype),
+                     "w": str(w_dtype), **err}
+        del x, w, a, b
+    emit({"phase": "rmsnorm_vs_plain", "checks": len(cases), "cases": out,
+          "max_abs_err": worst})
+    return {"max_abs_err": worst}
+
+
+def phase_flash_vs_plain() -> dict:
+    """``flash_mha`` against ``flash_mha_plain`` on the card, and the
+    inputs it must refuse."""
+    gen_ = torch.Generator(device=DEVICE).manual_seed(1)
+    H, Hkv, hd = NEMO["H"], NEMO["Hkv"], NEMO["hd"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # (name, b, h, hkv, t, s, hd, causal, dtype)
+        ("nemo_causal", 2, H, Hkv, 4096, 4096, hd, True, bf16),
+        ("nemo", 2, H, Hkv, 4096, 4096, hd, False, bf16),
+        ("nemo_ragged", 2, H, Hkv, 4000, 4000, hd, True, bf16),
+        ("nemo_t1024_s4096", 2, H, Hkv, 1024, 4096, hd, True, bf16),
+        # zamba2-2.7b and xlstm-125m's heads
+        ("zamba2_hd80", 2, 32, 32, 1024, 1024, 80, True, bf16),
+        ("xlstm_hd192", 2, 4, 4, 1024, 1024, 192, True, bf16),
+        ("mqa", 2, H, 1, 1024, 1024, hd, True, bf16),
+        ("nemo_f32", 2, H, Hkv, 512, 512, hd, True, f32),
+    ]
+    out, worst = {}, 0.0
+    for name, b, h, hkv, t, s, d, causal, dtype in cases:
+        q = randn((b, h, t, d), dtype, gen_)
+        k = randn((b, hkv, s, d), dtype, gen_)
+        v = randn((b, hkv, s, d), dtype, gen_)
+        a = flash_kernel.flash_mha(q, k, v, causal=causal)
+        sync()
+        ref = flash_kernel.flash_mha_plain(q, k, v, causal=causal)
+        sync()
+        err = float_err(a, ref, FLASH_TOL[dtype])
+        check_close(f"flash_mha {name}", err)
+        worst = max(worst, err["max_abs_err"])
+        out[name] = {"shape": [b, h, hkv, t, s, d], "causal": causal,
+                     "dtype": str(dtype), **err}
+        del q, k, v, a, ref
+    torch.cuda.empty_cache()
+    # inputs the kernel does not take raise before any launch; a launch
+    # held to the 48 KB of shared memory it gets without asking is refused
+    # and raises
+    q = randn((1, 4, 64, 128), bf16, gen_)
+    kv = randn((1, 2, 64, 128), bf16, gen_)
+    bad = randn((1, 2, 8, 260), bf16, gen_)
+    # a contiguous view one element into a buffer: not 16-byte aligned
+    q_offset = randn((q.numel() + 1,), bf16, gen_)[1:].view(q.shape)
+    refused = [
+        ("hd260", lambda: flash_kernel.flash_mha(bad, bad, bad), ValueError),
+        ("h_not_multiple", lambda: flash_kernel.flash_mha(
+            q[:, :3].contiguous(), kv, kv), ValueError),
+        ("cpu_mixed", lambda: flash_kernel.flash_mha(q, kv.cpu(), kv),
+         ValueError),
+        ("misaligned", lambda: flash_kernel.flash_mha(q_offset, kv, kv),
+         ValueError),
+        ("smem_48k", lambda: flash_kernel.launch(
+            q, kv, kv, torch.empty_like(q), True, 48 * 1024), RuntimeError),
+    ]
+    for name, call, error in refused:
+        if not raises(call, error):
+            raise AssertionError(f"flash_mha took {name}")
+    emit({"phase": "flash_vs_plain", "checks": len(cases) + len(refused),
+          "cases": out, "refused": [r[0] for r in refused],
+          "max_abs_err": worst})
+    return {"max_abs_err": worst}
+
+
+def path_run(name: str, fn) -> tuple:
+    """``fn()`` once with every launch count set to 0 just before and read
+    just after; returns its output and the counts."""
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    y = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    return y, {"phase": name, "wall_s": wall, "launches": launch_counts()}
+
+
+def phase_rmsnorm_path() -> dict:
+    """``fused_rmsnorm(x, w)`` at mistral-nemo-12b's width over 8 x 4096
+    tokens, bfloat16, with its times beside its
+    bound, its plain version and ``torch.nn.functional.rms_norm`` (timed
+    only)."""
+    gen_ = torch.Generator(device=DEVICE).manual_seed(2)
+    d = NEMO["d"]
+    x = randn((8, 4096, d), torch.bfloat16, gen_)
+    w = randn((d,), torch.bfloat16, gen_)
+    y, run = path_run("rmsnorm_path", lambda: fused_rmsnorm(x, w))
+    if run["launches"]["rmsnorm_rows"] <= 0:
+        raise AssertionError("fused_rmsnorm did not launch rmsnorm_rows")
+    if y.shape != x.shape or y.dtype != x.dtype:
+        raise AssertionError(f"fused_rmsnorm gave {y.dtype} {y.shape}")
+    err = float_err(y, rmsnorm_ref(x, w), RMS_TOL[x.dtype])
+    check_close("fused_rmsnorm", err)
+    rows = x.numel() // d
+    run.update({
+        "shape": {"rows": rows, "d": d, "dtype": "bfloat16"}, **err,
+        "ms": time_ms(lambda: fused_rmsnorm(x, w)),
+        "plain_ms": time_ms(lambda: fused_rmsnorm(x, w, backend="torch")),
+        "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
+            x, (d,), w, eps=1e-5)),
+        **rmsnorm_bound(rows, d, x.dtype)})
+    emit(run)
+    return run
+
+
+def phase_flash_path() -> dict:
+    """``flash_attention(q, k, v)`` (causal) at mistral-nemo-12b's heads
+    over 2 x 4096 tokens, bfloat16, with its times
+    beside its bound, its plain version and
+    ``scaled_dot_product_attention`` (timed only)."""
+    gen_ = torch.Generator(device=DEVICE).manual_seed(3)
+    b, t, H, Hkv, hd = 2, 4096, NEMO["H"], NEMO["Hkv"], NEMO["hd"]
+    q = randn((b, H, t, hd), torch.bfloat16, gen_)
+    k = randn((b, Hkv, t, hd), torch.bfloat16, gen_)
+    v = randn((b, Hkv, t, hd), torch.bfloat16, gen_)
+    o, run = path_run("flash_path", lambda: flash_attention(q, k, v))
+    if run["launches"]["flash_mha"] <= 0:
+        raise AssertionError("flash_attention did not launch flash_mha")
+    if o.shape != q.shape or o.dtype != q.dtype:
+        raise AssertionError(f"flash_attention gave {o.dtype} {o.shape}")
+    err = float_err(o, mha_ref(q, k, v), FLASH_TOL[q.dtype])
+    check_close("flash_attention", err)
+    del o
+    torch.cuda.empty_cache()
+    run.update({
+        "shape": {"B": b, "H": H, "Hkv": Hkv, "T": t, "S": t, "hd": hd,
+                  "causal": True, "dtype": "bfloat16"}, **err,
+        "ms": time_ms(lambda: flash_attention(q, k, v)),
+        "plain_ms": time_ms(lambda: flash_attention(q, k, v,
+                                                    backend="torch")),
+        "library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)),
+        "smem_bytes": flash_kernel.load_library().flash_attention_smem_bytes(
+            hd),
+        **flash_bound(b, H, Hkv, t, t, hd, True, q.dtype)})
+    emit(run)
+    torch.cuda.empty_cache()
+    return run
+
+
+def float_kernel_entry(name: str, source: str, checked: dict,
+                       path: dict) -> dict:
+    """A float kernel's entry of the kernels line, from its check phase
+    and its path phase."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name],
+            "max_abs_err": checked["max_abs_err"], "ms": path["ms"],
+            "plain_ms": path["plain_ms"], "library_ms": path["library_ms"],
+            "shape": path["shape"], "bound_ms": path["bound_ms"],
+            "bound_by": path["bound_by"], "bytes": path["bytes"],
+            "ops": path["ops"]}
 
 
 def build_all() -> dict:
@@ -598,6 +877,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
 
     # 1. device
@@ -613,6 +894,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libraries = build_all()
     emit({"phase": "build", "libraries": libraries,
+          "seconds": time.perf_counter() - t0})
+
+    # 2b. the float kernels against their plain versions, then their entry
+    # points at mistral-nemo-12b's widths
+    t0 = time.perf_counter()
+    kernels = {}
+    rms_checked = phase_rmsnorm_vs_plain()
+    flash_checked = phase_flash_vs_plain()
+    rms_run = phase_rmsnorm_path()
+    flash_run = phase_flash_path()
+    kernels["rmsnorm_rows"] = float_kernel_entry(
+        "rmsnorm_rows", RMSNORM_SOURCE, rms_checked, rms_run)
+    kernels["flash_mha"] = float_kernel_entry(
+        "flash_mha", FLASH_SOURCE, flash_checked, flash_run)
+    float_runs = [rms_run, flash_run]
+    emit({"phase": "float_kernels_done",
           "seconds": time.perf_counter() - t0})
 
     # graphs: the sizes of the paper's soc-LiveJournal1 and delaunay_n24
@@ -659,7 +956,7 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    kernels = phase_kernels(rmat, star)
+    kernels.update(phase_kernels(rmat, star))
     del star
     kernels["mm2"] = phase_mm2(check_graphs, async_graphs)
     del check_graphs
@@ -714,7 +1011,7 @@ def main(argv=None) -> int:
     if async_frontier["launches"]["mm2"] <= 0:
         raise AssertionError("cuda_async under the frontier did not launch "
                              "mm2")
-    runs += frontier_runs + [async_frontier]
+    runs += frontier_runs + [async_frontier] + float_runs
     emit({"phase": "frontier_path_done",
           "seconds": time.perf_counter() - t0})
 

@@ -16,6 +16,12 @@ from repro_torch.graphs import generators as gen  # noqa: E402
 from repro_torch.graphs.oracle import connected_components_oracle  # noqa: E402
 from repro_torch.kernels import contour_mm  # noqa: E402
 from repro_torch.kernels.contour_mm import blocked, kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 flash_mha, flash_mha_plain)
+from repro_torch.kernels.fused_rmsnorm import (fused_rmsnorm,  # noqa: E402
+                                               rmsnorm_rows,
+                                               rmsnorm_rows_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -192,3 +198,174 @@ def test_frontier_on_the_card_matches_the_torch_backend(cuda, strategy):
     for field in ("labels", "iterations", "converged", "edges_visited"):
         assert torch.equal(getattr(res, field), getattr(plain, field))
     assert "schedule=staged" in res.provenance[0]
+
+
+# (rows, d, x dtype, w dtype): 16-byte vectors staged in registers from one
+# to eight a thread, a row too wide for the stage (read twice), and widths
+# that are not whole vectors (scalar loads)
+RMS_CARD_CASES = [
+    (64, 512, torch.float32, torch.float32),
+    (33, 768, torch.bfloat16, torch.bfloat16),
+    (7, 128, torch.float32, torch.float32),
+    (300, 5120, torch.bfloat16, torch.float32),
+    (5, 8192, torch.float32, torch.bfloat16),
+    (5, 16384, torch.float32, torch.float32),
+    (3, 65536, torch.bfloat16, torch.bfloat16),
+    (2, 40000, torch.float32, torch.float32),
+    (9, 100, torch.bfloat16, torch.float32),
+    (9, 101, torch.float32, torch.float32),
+]
+# bfloat16 rounds the output: one unit in its last place
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("rows,d,x_dtype,w_dtype", RMS_CARD_CASES)
+def test_rmsnorm_matches_plain_on_the_card(cuda, rows, d, x_dtype, w_dtype):
+    gen_ = torch.Generator(device=cuda).manual_seed(rows * d)
+    x = torch.randn(rows, d, device=cuda, generator=gen_).to(x_dtype)
+    w = torch.randn(d, device=cuda, generator=gen_).to(w_dtype)
+    before = rmsnorm_rows.launches
+    got = rmsnorm_rows(x, w)
+    assert rmsnorm_rows.launches == before + 1
+    torch.cuda.synchronize()
+    want = rmsnorm_rows_plain(x, w)
+    assert got.dtype == x_dtype
+    tol = RMS_TOL[x_dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # the entry point on (..., d) is the same kernel, one launch
+    y = fused_rmsnorm(x.reshape(1, rows, d), w)
+    assert rmsnorm_rows.launches == before + 2
+    assert torch.equal(y.reshape(rows, d), got)
+
+
+def test_rmsnorm_rejects_bad_inputs_on_the_card(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    w = torch.ones(8, device=cuda)
+    before = rmsnorm_rows.launches
+    for call, error in (
+            (lambda: rmsnorm_rows(x.double(), w), TypeError),
+            (lambda: rmsnorm_rows(x, w.cpu()), ValueError),
+            (lambda: rmsnorm_rows(x.cpu(), w), ValueError),
+            (lambda: rmsnorm_rows(x, w[:7]), ValueError),
+            (lambda: rmsnorm_rows(torch.zeros(8, 4, device=cuda).t(), w),
+             ValueError)):
+        with pytest.raises(error):
+            call()
+    assert rmsnorm_rows.launches == before
+
+
+# (b, h, hkv, t, s, hd, causal, dtype): GQA, MQA, ragged T and S on both
+# sides of a tile, T != S, every column-group count, the smallest and
+# largest head dims
+FLASH_CARD_CASES = [
+    (2, 4, 2, 128, 128, 64, True, torch.float32),
+    (2, 4, 2, 128, 128, 64, False, torch.float32),
+    (1, 8, 1, 130, 130, 32, True, torch.bfloat16),
+    (1, 4, 4, 200, 130, 16, True, torch.float32),
+    (1, 4, 2, 100, 260, 128, True, torch.bfloat16),
+    (1, 4, 2, 70, 190, 128, False, torch.bfloat16),
+    (1, 2, 2, 96, 96, 80, True, torch.float32),
+    (1, 2, 2, 64, 100, 192, False, torch.float32),
+    (1, 2, 1, 65, 65, 256, True, torch.bfloat16),
+    (3, 2, 2, 1, 1, 8, True, torch.float32),
+]
+# (atol, rtol, rms_rel), as chip_smoke.py holds the kernel at nemo's
+# shapes: one unit in bfloat16's last place, and rms(got - want) against
+# rms(want)
+FLASH_TOL = {torch.float32: (1e-5, 1e-4, 1e-5),
+             torch.bfloat16: (4e-3, 1e-2, 5e-4)}
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,hd,causal,dtype", FLASH_CARD_CASES)
+def test_flash_matches_plain_on_the_card(cuda, b, h, hkv, t, s, hd, causal,
+                                         dtype):
+    gen_ = torch.Generator(device=cuda).manual_seed(t * s + hd)
+    q, k, v = (torch.randn(shape, device=cuda, generator=gen_).to(dtype)
+               for shape in ((b, h, t, hd), (b, hkv, s, hd),
+                             (b, hkv, s, hd)))
+    before = flash_mha.launches
+    got = flash_mha(q, k, v, causal=causal)
+    assert flash_mha.launches == before + 1
+    torch.cuda.synchronize()
+    want = flash_mha_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol, rms_rel = FLASH_TOL[dtype]
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    assert ((got - want).square().mean().sqrt()
+            <= rms_rel * want.square().mean().sqrt())
+
+
+def test_flash_entry_point_launches_the_kernel_on_the_card(cuda):
+    gen_ = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(1, 4, 256, 64, device=cuda, generator=gen_)
+    k = torch.randn(1, 2, 256, 64, device=cuda, generator=gen_)
+    v = torch.randn(1, 2, 256, 64, device=cuda, generator=gen_)
+    before = flash_mha.launches
+    got = flash_attention(q, k, v)
+    assert flash_mha.launches == before + 1
+    assert torch.equal(got, flash_mha(q, k, v))
+
+
+def test_flash_rejects_bad_inputs_on_the_card(cuda):
+    def qkv(h=4, hkv=2, hd=64):
+        return (torch.zeros(1, h, 16, hd, device=cuda),
+                torch.zeros(1, hkv, 16, hd, device=cuda),
+                torch.zeros(1, hkv, 16, hd, device=cuda))
+
+    q, k, v = qkv()
+    before = flash_mha.launches
+    for call, error in (
+            (lambda: flash_mha(*qkv(hd=260)), ValueError),
+            (lambda: flash_mha(*qkv(h=3)), ValueError),
+            (lambda: flash_mha(q, k.cpu(), v), ValueError),
+            (lambda: flash_mha(q.cpu(), k, v), ValueError),
+            (lambda: flash_mha(q.double(), k.double(), v.double()),
+             TypeError),
+            (lambda: flash_mha(q.half(), k.half(), v.half()), TypeError),
+            (lambda: flash_mha(q.transpose(2, 3).contiguous()
+                               .transpose(2, 3), k, v), ValueError)):
+        with pytest.raises(error):
+            call()
+    assert flash_mha.launches == before
+
+
+def test_flash_refuses_misaligned_views_on_the_card(cuda):
+    """A contiguous view one element into a buffer is not 16-byte aligned:
+    the wrapper raises ValueError and the C launcher refuses the pointers,
+    so the kernel's vector loads never fault."""
+    buf = torch.randn(1 * 2 * 16 * 64 + 1, device=cuda)
+    q = buf[1:].view(1, 2, 16, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = torch.randn(1, 2, 16, 64, device=cuda)
+    before = flash_mha.launches
+    for args in ((q, k, k), (k, q, k), (k, k, q)):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_mha(*args)
+    need = flash.load_library().flash_attention_smem_bytes(64)
+    with pytest.raises(RuntimeError, match="flash_mha launch failed"):
+        flash.launch(q, k, k, torch.empty_like(k), True, need)
+    assert flash_mha.launches == before
+    # the context is sound: the next aligned call runs
+    torch.testing.assert_close(flash_mha(q.clone(), k, k),
+                               flash_mha_plain(q, k, k), atol=1e-5,
+                               rtol=1e-4)
+
+
+def test_flash_launch_refused_for_shared_memory_raises(cuda):
+    """At hd = 128 the kernel needs 119,808 bytes of shared memory; held to
+    the 48 KB a launch gets without asking, the launch is refused, and the
+    wrapper raises instead of returning an unwritten output."""
+    q = torch.randn(1, 2, 64, 128, device=cuda)
+    k = torch.randn(1, 2, 64, 128, device=cuda)
+    out = torch.empty_like(q)
+    need = flash.load_library().flash_attention_smem_bytes(128)
+    assert need == 119_808
+    before = flash_mha.launches
+    with pytest.raises(RuntimeError, match="flash_mha launch failed"):
+        flash.launch(q, k, k, out, True, 48 * 1024)
+    assert flash_mha.launches == before
+    # the next call asks for what it needs, and runs
+    flash.launch(q, k, k, out, True, need)
+    torch.testing.assert_close(out, flash_mha_plain(q, k, k), atol=1e-4,
+                               rtol=1e-4)
