@@ -19,7 +19,9 @@ against scipy's connected components:
   ``flash_attention(q, k, v)``, at mistral-nemo-12b's widths (d_model
   5120; 32 heads, 8 KV heads, head dim 128) over 8 x 4096 and 2 x 4096
   tokens, after ``rmsnorm_rows`` and ``flash_mha`` were held against
-  their plain versions there and at other widths of the repo's models.
+  their plain versions there and at other widths of the repo's models;
+  ``flash_attention``'s bfloat16 kernel is also shown to run on ``wgmma``
+  and TMA (its SASS), with its rate and SDPA's error beside it.
 
 Every phase prints one JSON line with its seconds; any failed check
 raises and the script exits non-zero.  The lines before the last are the
@@ -831,12 +833,56 @@ def phase_flash_path() -> dict:
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)),
-        "smem_bytes": flash_kernel.load_library().flash_attention_smem_bytes(
-            hd),
+        "smem_bytes": flash_kernel.smem_bytes(hd, q.dtype),
         **flash_bound(b, H, Hkv, t, t, hd, True, q.dtype)})
     emit(run)
+    emit({"phase": "flash_hopper", **flash_hopper(q, k, v, run)})
     torch.cuda.empty_cache()
     return run
+
+
+def flash_hopper(q, k, v, run: dict) -> dict:
+    """What shows the bfloat16 kernel's design on the card: its rate on
+    the counted FLOP and on the FLOP its tensor cores issue (1.5x: the
+    split P multiplies V twice; the causal diagonal tiles, computed whole,
+    add ~3% more at T = 4096 that neither count includes), SDPA's own error
+    against ``mha_ref`` (it rounds P to bfloat16, so it is expected past
+    the rms limit), and the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+    instructions in each bfloat16 instance's SASS; raises if an instance
+    has none of either."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    sdpa_err = float_err(sdpa, mha_ref(q, k, v), FLASH_TOL[q.dtype])
+    del sdpa
+    sass = sass_counts(_build.library_path(flash_kernel.LIBRARY,
+                                           flash_kernel.SOURCES),
+                       "flash_wgmma_kernel", ("HGMMA", "UTMALDG"))
+    if len(sass) != len(flash_kernel.HEAD_DIM_BUCKETS) or not all(
+            all(counts.values()) for counts in sass.values()):
+        raise AssertionError(f"bf16 flash instances without wgmma or TMA "
+                             f"loads in their SASS: {sass}")
+    return {"tflops_counted": run["ops"] / run["ms"] / 1e9,
+            "tflops_issued": 1.5 * run["ops"] / run["ms"] / 1e9,
+            "sdpa_vs_mha_ref": sdpa_err,
+            "sdpa_within_flash_tol": sdpa_err["excess"] <= 0 and
+            sdpa_err["rel_rms_err"] <= sdpa_err["rel_rms_limit"],
+            "sass": sass}
+
+
+def sass_counts(library: Path, kernel_name: str, opcodes) -> dict:
+    """Occurrences of each opcode in the SASS of every function of the
+    library whose (mangled) name holds ``kernel_name``, from
+    ``cuobjdump -sass``, by function."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name, _, body = section.partition("\n")
+        if kernel_name in name:
+            counts[name.strip()] = {op: body.count(op) for op in opcodes}
+    return counts
 
 
 def float_kernel_entry(name: str, source: str, checked: dict,

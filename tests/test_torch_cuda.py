@@ -255,8 +255,10 @@ def test_rmsnorm_rejects_bad_inputs_on_the_card(cuda):
 
 
 # (b, h, hkv, t, s, hd, causal, dtype): GQA, MQA, ragged T and S on both
-# sides of a tile, T != S, every column-group count, the smallest and
-# largest head dims
+# sides of a tile, T != S, every column-group count of the float32 kernel
+# and every head-dim bucket of the bfloat16 one (64, 128, 192, 256, with
+# head dims that are not multiples of 16), causal T > S with S a multiple
+# of the 128-key tile, the smallest and largest head dims
 FLASH_CARD_CASES = [
     (2, 4, 2, 128, 128, 64, True, torch.float32),
     (2, 4, 2, 128, 128, 64, False, torch.float32),
@@ -268,6 +270,13 @@ FLASH_CARD_CASES = [
     (1, 2, 2, 64, 100, 192, False, torch.float32),
     (1, 2, 1, 65, 65, 256, True, torch.bfloat16),
     (3, 2, 2, 1, 1, 8, True, torch.float32),
+    (1, 2, 2, 127, 129, 8, True, torch.bfloat16),
+    (1, 4, 2, 129, 127, 24, False, torch.bfloat16),
+    (1, 4, 2, 300, 256, 80, True, torch.bfloat16),
+    (1, 2, 1, 129, 128, 64, True, torch.bfloat16),
+    (1, 2, 2, 129, 129, 192, True, torch.bfloat16),
+    (2, 4, 4, 127, 127, 256, False, torch.bfloat16),
+    (3, 2, 2, 1, 1, 8, True, torch.bfloat16),
 ]
 # (atol, rtol, rms_rel), as chip_smoke.py holds the kernel at nemo's
 # shapes: one unit in bfloat16's last place, and rms(got - want) against
@@ -342,7 +351,7 @@ def test_flash_refuses_misaligned_views_on_the_card(cuda):
     for args in ((q, k, k), (k, q, k), (k, k, q)):
         with pytest.raises(ValueError, match="16-byte"):
             flash_mha(*args)
-    need = flash.load_library().flash_attention_smem_bytes(64)
+    need = flash.smem_bytes(64, torch.float32)
     with pytest.raises(RuntimeError, match="flash_mha launch failed"):
         flash.launch(q, k, k, torch.empty_like(k), True, need)
     assert flash_mha.launches == before
@@ -352,20 +361,30 @@ def test_flash_refuses_misaligned_views_on_the_card(cuda):
                                rtol=1e-4)
 
 
-def test_flash_launch_refused_for_shared_memory_raises(cuda):
-    """At hd = 128 the kernel needs 119,808 bytes of shared memory; held to
-    the 48 KB a launch gets without asking, the launch is refused, and the
-    wrapper raises instead of returning an unwritten output."""
-    q = torch.randn(1, 2, 64, 128, device=cuda)
-    k = torch.randn(1, 2, 64, 128, device=cuda)
+# shared memory each kernel needs at hd = 128: the float32 kernel's fp32
+# staging (2 * 128 * 68 + 64 * 128 + 64 * 68) * 4; the bfloat16 kernel's Q
+# tile (32 KB) and two stages of K and V tiles (128 KB), its 7 mbarriers
+# and 1 KB to align the ring to the 128-byte swizzle's 1024-byte pattern
+FLASH_SMEM_AT_HD128 = {torch.float32: 119_808, torch.bfloat16: 164_920}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launch_refused_for_shared_memory_raises(cuda, dtype):
+    """Held to the 48 KB a launch gets without asking, or to one byte less
+    than its need, the launch is refused, and the wrapper raises instead of
+    returning an unwritten output."""
+    q = torch.randn(1, 2, 64, 128, device=cuda).to(dtype)
+    k = torch.randn(1, 2, 64, 128, device=cuda).to(dtype)
     out = torch.empty_like(q)
-    need = flash.load_library().flash_attention_smem_bytes(128)
-    assert need == 119_808
+    need = flash.smem_bytes(128, dtype)
+    assert need == FLASH_SMEM_AT_HD128[dtype]
     before = flash_mha.launches
-    with pytest.raises(RuntimeError, match="flash_mha launch failed"):
-        flash.launch(q, k, k, out, True, 48 * 1024)
+    for limit in (48 * 1024, need - 1):
+        with pytest.raises(RuntimeError, match="flash_mha launch failed"):
+            flash.launch(q, k, k, out, True, limit)
     assert flash_mha.launches == before
     # the next call asks for what it needs, and runs
     flash.launch(q, k, k, out, True, need)
-    torch.testing.assert_close(out, flash_mha_plain(q, k, k), atol=1e-4,
-                               rtol=1e-4)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), flash_mha_plain(q, k, k).float(),
+                               atol=tol[0], rtol=tol[1])
