@@ -79,6 +79,10 @@ REPS = 20
 # launches per timing of the in-order sweep kernel mm2: one launch walks
 # every edge on one thread and takes seconds at the async path's sizes
 ASYNC_REPS = 3
+# mm2's (window, depth, cache slots) at which every branch of its protocol
+# fires, checked on the small graphs named in MM2_TINY_ON
+MM2_TINY = [(1, 1, 1), (3, 2, 1), (4, 4, 2), (7, 5, 8)]
+MM2_TINY_ON = ("path_unshuffled(65536)", "star(65536)")
 # the frontier schedule the repo's drivers run (benchmarks/connectivity.py,
 # examples/quickstart.py)
 FRONTIER = {"sampling": 2, "compact_every": 2}
@@ -370,19 +374,33 @@ def phase_mm2(small, full) -> dict:
 
     ``small`` and ``full`` map names to graphs.  On the small ones:
     identity labels and one mid-run state, with and without
-    ``edge_limit``; an endpoint outside ``[0, n)`` must raise.  On the
-    full-size ones (the async path's): the first sweep, where the plain
-    Python loop takes seconds, then ``ASYNC_REPS`` timed launches.
+    ``edge_limit``, in the edge order and reversed; on the unshuffled path
+    and the star also at tiny window, depth and cache sizes
+    (``MM2_TINY``), where the cache's evictions, the window check's
+    refusals and the slow path all fire; an endpoint outside ``[0, n)``
+    must raise.
+    On the full-size ones (the async path's): the first sweep, where the
+    plain Python loop takes seconds, then ``ASYNC_REPS`` timed launches,
+    and one launch that counts where the consumer's label reads came
+    from, per edge.
     """
     err, checks = 0, 0
-    for g in small.values():
+    for name, g in small.items():
+        sizes = [None] + (MM2_TINY if name in MM2_TINY_ON else [])
         for L in c2_states(g, 1):
-            for limit in (None, g.n_edges // 2):
-                a = kernel.mm2(L, g.src, g.dst, edge_limit=limit)
-                b = kernel.mm2_plain(L, g.src, g.dst, limit)
-                sync()
-                err = max(err, max_abs_err(a, b))
-                checks += 1
+            for src, dst in ((g.src, g.dst), (g.src.flip(0), g.dst.flip(0))):
+                for limit in (None, g.n_edges // 2 + 1):
+                    b = kernel.mm2_plain(L, src, dst, limit)
+                    for size in sizes:
+                        if size is None:
+                            a = kernel.mm2(L, src, dst, edge_limit=limit)
+                        else:
+                            a = kernel.sweep(L, src, dst, limit,
+                                             window=size[0], depth=size[1],
+                                             cache_slots=size[2])
+                        sync()
+                        err = max(err, max_abs_err(a, b))
+                        checks += 1
     g = next(iter(small.values()))
     bad = g.src.clone()
     bad[g.n_edges // 2] = g.n_vertices
@@ -408,19 +426,25 @@ def phase_mm2(small, full) -> dict:
             kernel.mm2(L0, g.src, g.dst, check=False)
         end.record()
         sync()
+        c, counts = kernel.sweep(L0, g.src, g.dst, counts=True)
+        err = max(err, max_abs_err(c, b))
+        checks += 1
         n, m = g.n_vertices, g.n_edges
+        ms = start.elapsed_time(end) / ASYNC_REPS
         shapes[name] = {
-            "shape": {"n": n, "m": m}, "plain_ms": plain_ms,
-            "ms": start.elapsed_time(end) / ASYNC_REPS,
+            "shape": {"n": n, "m": m}, "plain_ms": plain_ms, "ms": ms,
+            "us_per_edge": ms * 1e3 / m,
+            "per_edge": {k: v / m for k, v in counts.items()},
             # read src, dst and L once, write L once; per edge one min for
             # z and four compares
             **bound(8 * m + 8 * n, 5 * m),
         }
-        shapes[name]["us_per_edge"] = shapes[name]["ms"] * 1e3 / m
-        del a, b
+        del a, b, c
     if err:
         raise AssertionError(f"mm2 differs from mm2_plain: {err}")
     emit({"phase": "mm2_vs_plain", "checks": checks, "max_abs_err": err,
+          "sizes": {"window": kernel.WINDOW, "depth": kernel.DEPTH,
+                    "cache_slots": kernel.CACHE_SLOTS, "tiny": MM2_TINY},
           "full_size": shapes})
     first = next(iter(shapes.values()))
     return {"name": "mm2", "route": "cuda", "source": MM2_SOURCE,
@@ -429,7 +453,9 @@ def phase_mm2(small, full) -> dict:
             # no PyTorch call computes an in-order sequential sweep
             "library_ms": None, "shape": first["shape"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "bytes": first["bytes"], "ops": first["ops"]}
+            "bytes": first["bytes"], "ops": first["ops"],
+            "us_per_edge": first["us_per_edge"],
+            "per_edge": first["per_edge"]}
 
 
 def iteration_parts(g, L) -> dict:
@@ -993,6 +1019,11 @@ def main(argv=None) -> int:
             args.check_scale, device=DEVICE),
         f"rmat({args.check_scale},{RMAT_EDGE_FACTOR})": gen.rmat(
             args.check_scale, edge_factor=RMAT_EDGE_FACTOR, device=DEVICE),
+        # each edge (i, i + 1) reads the label the edge before wrote; every
+        # edge meets the hub
+        "path_unshuffled(65536)": gen.path(1 << 16, shuffle_ids=False,
+                                           device=DEVICE),
+        "star(65536)": gen.star(1 << 16, device=DEVICE),
     }
     emit({"phase": "graphs", "seconds": time.perf_counter() - t0,
           "seconds_each": seconds,

@@ -163,6 +163,87 @@ def test_mm2_rejects_out_of_range_ids_on_the_card(cuda):
     torch.cuda.synchronize()
 
 
+# (window, depth, cache slots) of mm2's protocol: the defaults, and sizes
+# at which every forwarding, eviction and fallback branch fires
+MM2_SIZES = [(kernel.WINDOW, kernel.DEPTH, kernel.CACHE_SLOTS), (1, 1, 1),
+             (1, 2, 1), (3, 2, 1), (4, 4, 2), (7, 5, 8), (32, 2, 64)]
+MM2_GRAPHS = {
+    "path_unshuffled": lambda d: gen.path(3000, shuffle_ids=False, device=d),
+    "path": lambda d: gen.path(3000, seed=2, device=d),
+    "star": lambda d: gen.star(2000, seed=1, device=d),
+    "grid": lambda d: gen.grid2d(30, 40, device=d),
+    "rmat10": lambda d: gen.rmat(10, seed=7, device=d),
+    "rmat12": lambda d: gen.rmat(12, seed=8, device=d),
+    "mix": lambda d: gen.components_mix(
+        [gen.path(500, seed=1, device="cpu"), gen.rmat(9, seed=2,
+                                                       device="cpu"),
+         gen.star(300, seed=3, device="cpu")], seed=4, device=d),
+}
+
+
+def _aliasing_list(seed, device):
+    """Self-loops, duplicate edges, w == v and v == L[w] (lw == v)."""
+    gen_ = torch.Generator().manual_seed(seed)
+    n = 48
+    L = torch.stack([torch.randint(0, i + 1, (), generator=gen_)
+                     for i in range(n)]).int()
+    w = torch.randint(0, n, (300,), generator=gen_, dtype=torch.int32)
+    kind = torch.randint(0, 4, (300,), generator=gen_)
+    v = torch.where(kind == 0, w, torch.where(
+        kind == 1, L[w.long()],
+        torch.randint(0, n, (300,), generator=gen_, dtype=torch.int32)))
+    dup = torch.randint(0, 300, (60,), generator=gen_)
+    src = torch.cat([w, w[dup], v[:40]])
+    dst = torch.cat([v, v[dup], w[:40]])
+    return L.to(device), src.to(device), dst.to(device)
+
+
+@pytest.mark.parametrize("size", MM2_SIZES, ids=str)
+@pytest.mark.parametrize("graph", sorted(MM2_GRAPHS))
+def test_mm2_sizes_match_plain(cuda, graph, size):
+    """The kernel at the defaults and at tiny window, depth and cache
+    sizes, from identity and mid-run labels, in both edge orders, with an
+    edge_limit inside a window: equal to mm2_plain bit for bit."""
+    window, depth, slots = size
+    g = MM2_GRAPHS[graph](cuda)
+    m = g.n_edges
+    limit = (m // 2 // window) * window + max(1, window // 2)
+    for L in _states(g, count=1):
+        for src, dst in ((g.src, g.dst), (g.src.flip(0), g.dst.flip(0))):
+            for lim in (None, limit):
+                got, counts = kernel.sweep(
+                    L, src, dst, lim, window=window, depth=depth,
+                    cache_slots=slots, counts=True)
+                want = kernel.mm2_plain(L.cpu(), src.cpu(), dst.cpu(), lim)
+                assert torch.equal(got.cpu(), want)
+                assert sum(counts.values()) == 4 * (m if lim is None
+                                                    else lim)
+
+
+@pytest.mark.parametrize("size", MM2_SIZES, ids=str)
+def test_mm2_sizes_on_self_loops_duplicates_and_aliasing(cuda, size):
+    window, depth, slots = size
+    for seed in range(4):
+        L, src, dst = _aliasing_list(seed, cuda)
+        got = kernel.sweep(L, src, dst, window=window, depth=depth,
+                           cache_slots=slots)
+        want = kernel.mm2_plain(L.cpu(), src.cpu(), dst.cpu())
+        assert torch.equal(got.cpu(), want)
+
+
+def test_mm2_launcher_refuses_what_the_card_cannot_hold(cuda):
+    """A cache past the CTA's shared memory is refused at launch and
+    raises; no launch is counted."""
+    L = torch.arange(8, dtype=torch.int32, device=cuda)
+    e = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    launches = kernel.mm2.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel.sweep(L, e, e, cache_slots=1 << 16)
+    assert kernel.mm2.launches == launches
+    with pytest.raises(ValueError, match="power of two"):
+        kernel.sweep(L, e, e, cache_slots=3)
+
+
 @pytest.mark.parametrize("options", [
     {"variant": "C-2"}, {"variant": "C-Syn"},
     {"variant": "C-2", "sampling": 2, "compact_every": 2},
