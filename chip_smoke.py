@@ -10,7 +10,12 @@ solve on CPU tensors where the kernel's order of updates matters, and
 against scipy's connected components:
 
 * the main path, ``repro_torch.solve(g)`` (Contour C-2 on the ``cuda``
-  kernels), and C-11mm, whose order-1 sweeps run ``scatter_min``;
+  kernels), and C-11mm, whose order-1 sweeps run ``scatter_min``; before
+  it, ``fused_relax`` and ``scatter_min`` are held against their plain
+  versions on hub graphs, slices and edge limits, their counts (updates
+  before the test of the output label, hot slots) against the plain
+  replays, their SASS for the warp combine (``contour_hopper``), and
+  timed in four label states of each main-path graph;
 * the asynchronous path, ``solve(g, backend="cuda_async")`` on the
   in-order sweep kernel ``mm2``;
 * the frontier path, ``solve(g, sampling=2, compact_every=2,
@@ -20,8 +25,9 @@ against scipy's connected components:
   5120; 32 heads, 8 KV heads, head dim 128) over 8 x 4096 and 2 x 4096
   tokens, after ``rmsnorm_rows`` and ``flash_mha`` were held against
   their plain versions there and at other widths of the repo's models;
-  ``flash_attention``'s bfloat16 kernel is also shown to run on ``wgmma``
-  and TMA (its SASS), with its rate and SDPA's error beside it.
+  both in bfloat16 and float16; ``flash_attention``'s 16-bit kernel is
+  also shown to run on ``wgmma`` and TMA in both types (its SASS), with
+  its rate and SDPA's error beside it.
 
 Every phase prints one JSON line with its seconds; any failed check
 raises and the script exits non-zero.  The lines before the last are the
@@ -91,7 +97,8 @@ FRONTIER = {"sampling": 2, "compact_every": 2}
 # closest entry for the kernels' int32 min/compare work
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
-# dense bf16 tensor-core rate: the least time of attention's products
+# dense bf16 and fp16 tensor-core rate: the least time of attention's
+# products
 BF16_TENSOR_OPS_PER_S = 989e12
 # mistral-nemo-12b (src/repro/configs/mistral_nemo_12b.py): d_model, query
 # heads, KV heads, head dim
@@ -107,9 +114,16 @@ NEMO = {"d": 5120, "H": 32, "Hkv": 8, "hd": 128}
 # rounded to bfloat16) stays inside each element's bound where attention's
 # outputs are small (|o| ~ 0.03 at S = 4096) but not inside rms_rel.
 # Readings and a faulty kernel held to these limits: PERF.md
+# float16's limits are tighter than bfloat16's: it keeps three more bits
+# (one unit in its last place is at most 2**-10 |b|, inside rtol = 2e-3),
+# and its split P leaves ~1e-5 of rms(b) in attention (the CPU replay,
+# tests/test_torch_flash_replay.py), where one float16 P leaves ~2.6e-4,
+# past rms_rel = 1e-4.
 RMS_TOL = {torch.bfloat16: (1e-2, 1e-2, 5e-4),
+           torch.float16: (1e-3, 2e-3, 1e-4),
            torch.float32: (1e-5, 1e-5, 1e-5)}
 FLASH_TOL = {torch.bfloat16: (4e-3, 1e-2, 5e-4),
+             torch.float16: (1e-3, 2e-3, 1e-4),
              torch.float32: (1e-5, 1e-4, 1e-5)}
 
 REPLACES = {
@@ -267,8 +281,128 @@ def scipy_labels(g) -> np.ndarray:
     return first[lab].astype(np.int32)
 
 
-def phase_kernels(g, star) -> dict:
-    """Phase 3: each kernel against its plain version, then its times."""
+def live_pairs(L, src, dst) -> int:
+    """(edge, target) pairs of a fused sweep that can lower their label:
+    the atomics a kernel with one atomic per such pair issues."""
+    ls, ld = L[src], L[dst]
+    l2s, l2d = L[ls], L[ld]
+    z = torch.minimum(l2s, l2d)
+    return int((z < ls).sum() + (z < ld).sum() + (z < l2s).sum()
+               + (z < l2d).sum())
+
+
+def sweep_checks(graphs: dict) -> dict:
+    """K1 and K2 against their plain versions, and the card's red counts
+    against the replays', on small graphs.
+
+    On every graph and state: ``fused_relax`` at edge limits None, 0, 1,
+    31, 33 and m // 2, on the edge list and on ``src[1:]``, ``dst[1:]``
+    (a base 4 bytes past a 16-byte boundary); ``scatter_min`` on the
+    order-1 stream, whole and from its second update, with and without a
+    ``valid`` mask.  The counts that depend only on the input (updates
+    before the test of the output label, hot slots) must equal the
+    replays' exactly; the updates are printed per item beside the
+    one-atomic-per-live-update count of the kernels that came before."""
+    err = {"fused_relax": 0, "scatter_min": 0}
+    checks, counts = 0, {}
+    for name, g in graphs.items():
+        rows = []
+        for i, L in enumerate(c2_states(g, 3)):
+            row = {"state": i}
+            m = g.n_edges
+            for off in (0, 1):
+                src, dst = g.src[off:], g.dst[off:]
+                for limit in (None, 0, 1, 31, 33, (m - off) // 2):
+                    a, c = blocked.fused_relax_sweep(L, src, dst, limit,
+                                                     counts=True)
+                    b = blocked.fused_relax_plain(L, src, dst, limit)
+                    _, want = blocked.fused_relax_combined_replay(
+                        L, src, dst, limit)
+                    err["fused_relax"] = max(err["fused_relax"],
+                                             max_abs_err(a, b))
+                    if {key: c[key] for key in want} != want:
+                        raise AssertionError(
+                            f"fused_relax on {name}, state {i}, offset "
+                            f"{off}, limit {limit}: {c} on the card, "
+                            f"{want} in the replay")
+                    checks += 1
+                    if off == 0 and limit is None:
+                        row["fused_reds_per_edge"] = \
+                            want["reds_before_test"] / m
+                        row["fused_hot_slots"] = want["hot_slots"]
+                        row["fused_old_per_edge"] = live_pairs(
+                            L, g.src, g.dst) / m
+            t, v = minmap.mm_update_stream(L, g.src, g.dst, 1)
+            valid = torch.arange(t.shape[0], device=t.device) % 3 > 0
+            for off in (0, 1):
+                for vd in (None, valid[off:]):
+                    a, c = blocked.scatter_min_sweep(L, t[off:], v[off:], vd,
+                                                     counts=True)
+                    b = blocked.scatter_min_plain(L, t[off:], v[off:], vd)
+                    _, want = blocked.scatter_min_combined_replay(
+                        L, t[off:], v[off:], vd)
+                    err["scatter_min"] = max(err["scatter_min"],
+                                             max_abs_err(a, b))
+                    if {key: c[key] for key in want} != want:
+                        raise AssertionError(
+                            f"scatter_min on {name}, state {i}: {c} on the "
+                            f"card, {want} in the replay")
+                    checks += 1
+                    if off == 0 and vd is None:
+                        k = t.shape[0]
+                        row["scatter_reds_per_update"] = \
+                            want["reds_before_test"] / k
+                        row["scatter_hot_slots"] = want["hot_slots"]
+                        row["scatter_old_per_update"] = int(
+                            (v < L[t]).sum()) / k
+            rows.append(row)
+        counts[name] = rows
+    sync()
+    return {"err": err, "checks": checks, "red_counts": counts}
+
+
+def per_item(counts: dict, items: int) -> dict:
+    """A kernel's counts (``blocked.COUNTERS``) per item; hot slots as
+    they are."""
+    return {key: (value if key == "hot_slots" else value / items)
+            for key, value in counts.items()}
+
+
+def sweep_times(name, g) -> list:
+    """K1 and K2 in each of the four ``c2_states`` at the main path's
+    size, as the main path calls them (no wait for the range flag): device
+    ms, and per item the counts of ``blocked.COUNTERS`` beside the live
+    (target, condition) pairs, each an atomic in the kernels that came
+    before the dedupe, the test and the combine."""
+    rows = []
+    for i, L in enumerate(c2_states(g, 3)):
+        t, v = minmap.mm_update_stream(L, g.src, g.dst, 1)
+        _, fc = blocked.fused_relax_sweep(L, g.src, g.dst, counts=True)
+        _, sc = blocked.scatter_min_sweep(L, t, v, counts=True)
+        rows.append({
+            "state": i,
+            "fused_relax_ms": time_ms(lambda: blocked.fused_relax(
+                L, g.src, g.dst, check=False)),
+            "scatter_min_ms": time_ms(lambda: blocked.scatter_min(
+                L, t, v, check=False)),
+            "fused_per_edge": per_item(fc, g.n_edges),
+            "fused_old_per_edge": live_pairs(L, g.src, g.dst) / g.n_edges,
+            "scatter_per_update": per_item(sc, t.shape[0]),
+            "scatter_old_per_update": int((v < L[t]).sum()) / t.shape[0],
+        })
+        del t, v
+    emit({"phase": "sweep_states", "graph": name, "states": rows})
+    return rows
+
+
+def phase_kernels(full: dict, star, small: dict) -> dict:
+    """Phase 3: each sweep kernel against its plain version, then its
+    times at the main path's sizes.
+
+    ``full`` maps names to the main path's graphs, rmat first: the checks
+    and the kernels line's times are on it, the times in every state on
+    each.  ``small`` maps names to the graphs of :func:`sweep_checks`."""
+    g = next(iter(full.values()))
     states = c2_states(g, 3)
     m = g.n_edges
     err = {"fused_relax": 0, "scatter_min": 0}
@@ -303,6 +437,11 @@ def phase_kernels(g, star) -> dict:
         sync()
         err[name] = max(err[name], max_abs_err(a, b))
         checks += 1
+    # the small graphs, slices and edge limits, with the red counts
+    small_checks = sweep_checks(small)
+    checks += small_checks["checks"]
+    for name in err:
+        err[name] = max(err[name], small_checks["err"][name])
     if any(err.values()):
         raise AssertionError(f"kernel differs from its plain version: {err}")
     # one endpoint outside [0, n): each kernel raises IndexError
@@ -315,10 +454,10 @@ def phase_kernels(g, star) -> dict:
         checks += 1
     del bad
 
-    # times at the main path's shapes: the first sweep (identity labels),
-    # where the most atomics land; order 2 for fused_relax (every C-2
-    # sweep), order 1 for scatter_min (C-11mm's warm-up sweeps); called as
-    # the main path calls them, without waiting for the range flag
+    # times at the main path's shapes: the first sweep (identity labels);
+    # order 2 for fused_relax (every C-2 sweep), order 1 for scatter_min
+    # (C-11mm's warm-up sweeps); called as the main path calls them,
+    # without waiting for the range flag; then every state of both graphs
     L0 = states[0]
     n = g.n_vertices
     t1, v1 = minmap.mm_update_stream(L0, g.src, g.dst, 1)
@@ -352,7 +491,15 @@ def phase_kernels(g, star) -> dict:
         # update
         **bound(4 * n + 8 * k + 4 * n, k),
     }
+    del t1, v1, t1_long
+    per_state = {name: sweep_times(name, graph)
+                 for name, graph in full.items()}
+    for entry, key in ((fused, "fused_relax_ms"), (scatter, "scatter_min_ms")):
+        entry["ms_by_state"] = {name: [r[key] for r in rows]
+                                for name, rows in per_state.items()}
     sk = int(st.shape[0])
+    _, fc = blocked.fused_relax_sweep(sL, star.src, star.dst, counts=True)
+    _, sc = blocked.scatter_min_sweep(sL, st, sv, counts=True)
     hub = {
         "graph": f"star({star.n_vertices})", "updates": sk,
         "scatter_min_ms": time_ms(
@@ -361,12 +508,40 @@ def phase_kernels(g, star) -> dict:
             lambda: sL.scatter_reduce(0, st.long(), sv, "amin")),
         "fused_relax_ms": time_ms(
             lambda: blocked.fused_relax(sL, star.src, star.dst, check=False)),
+        "scatter_per_update": per_item(sc, sk),
+        "scatter_old_per_update": int((sv < sL[st]).sum()) / sk,
+        "fused_per_edge": per_item(fc, star.n_edges),
+        "fused_old_per_edge": live_pairs(sL, star.src, star.dst)
+        / star.n_edges,
         **bound(8 * star.n_vertices + 8 * sk, sk),
     }
+    hub["scatter_min_x_bound"] = hub["scatter_min_ms"] / hub["bound_ms"]
     emit({"phase": "kernels_vs_plain", "checks": checks,
           "states": len(states), "fused_relax": fused,
-          "scatter_min": scatter, "hub_contention": hub})
+          "scatter_min": scatter, "red_counts": small_checks["red_counts"],
+          "hub_contention": hub})
+    emit({"phase": "contour_hopper", **contour_hopper()})
     return {"fused_relax": fused, "scatter_min": scatter}
+
+
+def contour_hopper() -> dict:
+    """What shows the sweep kernels' design in their SASS on sm_90: the
+    warp combine (``MATCH``, and ``REDUX`` for the group's minimum), and
+    reds whose result is unused (``REDG``, no ``ATOMG``); raises unless
+    both kernels have all three and neither has ``ATOMG``."""
+    library = _build.library_path(blocked.LIBRARY, blocked.SOURCES)
+    ops = ("MATCH", "REDUX", "REDG", "ATOMG")
+    sass = {}
+    for name in ("fused_relax_kernel", "scatter_min_kernel"):
+        found = sass_counts(library, name, ops)
+        if len(found) != 1:
+            raise AssertionError(f"{name}: {len(found)} functions in the "
+                                 "SASS")
+        sass[name] = counts = next(iter(found.values()))
+        if not all(counts[op] for op in ops[:3]) or counts["ATOMG"]:
+            raise AssertionError(f"{name}'s SASS lacks MATCH, REDUX or "
+                                 f"REDG, or issues ATOMG: {counts}")
+    return {"sass": sass}
 
 
 def phase_mm2(small, full) -> dict:
@@ -694,7 +869,7 @@ def flash_bound(b, h, hkv, t, s, hd, causal, dtype) -> dict:
     # operations a head, half of them past the diagonal when causal
     size = torch.finfo(dtype).bits // 8
     ops = 4 * b * h * t * s * hd // (2 if causal else 1)
-    rate = (BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16
+    rate = (BF16_TENSOR_OPS_PER_S if dtype in (torch.bfloat16, torch.float16)
             else ALU_OPS_PER_S)
     return bound(size * hd * (2 * b * h * t + 2 * b * hkv * s), ops, rate)
 
@@ -710,6 +885,8 @@ def phase_rmsnorm_vs_plain() -> dict:
         ("small", 7, 128, torch.float32, torch.float32),
         ("bf16_x_f32_w", 4096, NEMO["d"], torch.bfloat16,
          torch.float32),
+        ("nemo_f16", 32768, NEMO["d"], torch.float16, torch.float16),
+        ("f16_x_f32_w", 4095, 4096, torch.float16, torch.float32),
     ]
     out, worst = {}, 0.0
     for name, rows, d, x_dtype, w_dtype in cases:
@@ -734,7 +911,7 @@ def phase_flash_vs_plain() -> dict:
     inputs it must refuse."""
     gen_ = torch.Generator(device=DEVICE).manual_seed(1)
     H, Hkv, hd = NEMO["H"], NEMO["Hkv"], NEMO["hd"]
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [
         # (name, b, h, hkv, t, s, hd, causal, dtype)
         ("nemo_causal", 2, H, Hkv, 4096, 4096, hd, True, bf16),
@@ -746,6 +923,10 @@ def phase_flash_vs_plain() -> dict:
         ("xlstm_hd192", 2, 4, 4, 1024, 1024, 192, True, bf16),
         ("mqa", 2, H, 1, 1024, 1024, hd, True, bf16),
         ("nemo_f32", 2, H, Hkv, 512, 512, hd, True, f32),
+        ("nemo_causal_f16", 2, H, Hkv, 4096, 4096, hd, True, f16),
+        ("nemo_ragged_f16", 2, H, Hkv, 4000, 4000, hd, True, f16),
+        ("xlstm_hd192_f16", 2, 4, 4, 1024, 1024, 192, True, f16),
+        ("zamba2_hd80_f16", 2, 32, 32, 1024, 1024, 80, False, f16),
     ]
     out, worst = {}, 0.0
     for name, b, h, hkv, t, s, d, causal, dtype in cases:
@@ -827,6 +1008,19 @@ def phase_rmsnorm_path() -> dict:
         "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
             x, (d,), w, eps=1e-5)),
         **rmsnorm_bound(rows, d, x.dtype)})
+    # the same call in float16
+    x, w = x.half(), w.half()
+    y = fused_rmsnorm(x, w)
+    if y.dtype != torch.float16:
+        raise AssertionError(f"fused_rmsnorm gave {y.dtype} for float16")
+    err = float_err(y, rmsnorm_ref(x, w), RMS_TOL[x.dtype])
+    check_close("fused_rmsnorm float16", err)
+    run["float16"] = {
+        **err, "ms": time_ms(lambda: fused_rmsnorm(x, w)),
+        "plain_ms": time_ms(lambda: fused_rmsnorm(x, w, backend="torch")),
+        "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
+            x, (d,), w, eps=1e-5)),
+        **rmsnorm_bound(rows, d, x.dtype)}
     emit(run)
     return run
 
@@ -861,6 +1055,24 @@ def phase_flash_path() -> dict:
                 q, k, v, is_causal=True, enable_gqa=True)),
         "smem_bytes": flash_kernel.smem_bytes(hd, q.dtype),
         **flash_bound(b, H, Hkv, t, t, hd, True, q.dtype)})
+    # the same call in float16
+    qh, kh, vh = q.half(), k.half(), v.half()
+    o = flash_attention(qh, kh, vh)
+    if o.dtype != torch.float16:
+        raise AssertionError(f"flash_attention gave {o.dtype} for float16")
+    err = float_err(o, mha_ref(qh, kh, vh), FLASH_TOL[qh.dtype])
+    check_close("flash_attention float16", err)
+    del o
+    torch.cuda.empty_cache()
+    run["float16"] = {
+        **err, "ms": time_ms(lambda: flash_attention(qh, kh, vh)),
+        "plain_ms": time_ms(lambda: flash_attention(qh, kh, vh,
+                                                    backend="torch")),
+        "library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True)),
+        **flash_bound(b, H, Hkv, t, t, hd, True, qh.dtype)}
+    del qh, kh, vh
     emit(run)
     emit({"phase": "flash_hopper", **flash_hopper(q, k, v, run)})
     torch.cuda.empty_cache()
@@ -868,31 +1080,43 @@ def phase_flash_path() -> dict:
 
 
 def flash_hopper(q, k, v, run: dict) -> dict:
-    """What shows the bfloat16 kernel's design on the card: its rate on
-    the counted FLOP and on the FLOP its tensor cores issue (1.5x: the
-    split P multiplies V twice; the causal diagonal tiles, computed whole,
-    add ~3% more at T = 4096 that neither count includes), SDPA's own error
-    against ``mha_ref`` (it rounds P to bfloat16, so it is expected past
-    the rms limit), and the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-    instructions in each bfloat16 instance's SASS; raises if an instance
-    has none of either."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True)
-    sdpa_err = float_err(sdpa, mha_ref(q, k, v), FLASH_TOL[q.dtype])
-    del sdpa
+    """What shows the 16-bit kernel's design on the card: its rate on the
+    counted FLOP and on the FLOP its tensor cores issue (1.5x: the split P
+    multiplies V twice; the causal diagonal tiles, computed whole, add ~3%
+    more at T = 4096 that neither count includes), in bfloat16 and
+    (``run["float16"]``) float16; SDPA's own error against ``mha_ref`` on
+    the bfloat16 ``q``, ``k``, ``v`` and on their float16 copies (it
+    rounds P to the input's type, so in bfloat16 it is expected past the
+    rms limit); and the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+    instructions in each bfloat16 and float16 instance's SASS; raises if
+    an instance is missing or has none of either."""
+    sdpa_err = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            qd, kd, vd, is_causal=True, enable_gqa=True)
+        err = float_err(sdpa, mha_ref(qd, kd, vd), FLASH_TOL[dtype])
+        err["within_flash_tol"] = (err["excess"] <= 0 and
+                                   err["rel_rms_err"] <= err["rel_rms_limit"])
+        sdpa_err[str(dtype)] = err
+        del qd, kd, vd, sdpa
     sass = sass_counts(_build.library_path(flash_kernel.LIBRARY,
                                            flash_kernel.SOURCES),
                        "flash_wgmma_kernel", ("HGMMA", "UTMALDG"))
-    if len(sass) != len(flash_kernel.HEAD_DIM_BUCKETS) or not all(
+    instances = {dtype: [name for name in sass if mangled in name]
+                 for dtype, mangled in (("bfloat16", "nv_bfloat16"),
+                                        ("float16", "__half"))}
+    if any(len(names) != len(flash_kernel.HEAD_DIM_BUCKETS)
+           for names in instances.values()) or not all(
             all(counts.values()) for counts in sass.values()):
-        raise AssertionError(f"bf16 flash instances without wgmma or TMA "
-                             f"loads in their SASS: {sass}")
+        raise AssertionError(f"16-bit flash instances missing or without "
+                             f"wgmma or TMA loads in their SASS: {sass}")
+    f16 = run["float16"]
     return {"tflops_counted": run["ops"] / run["ms"] / 1e9,
             "tflops_issued": 1.5 * run["ops"] / run["ms"] / 1e9,
-            "sdpa_vs_mha_ref": sdpa_err,
-            "sdpa_within_flash_tol": sdpa_err["excess"] <= 0 and
-            sdpa_err["rel_rms_err"] <= sdpa_err["rel_rms_limit"],
-            "sass": sass}
+            "float16_tflops_counted": f16["ops"] / f16["ms"] / 1e9,
+            "float16_tflops_issued": 1.5 * f16["ops"] / f16["ms"] / 1e9,
+            "sdpa_vs_mha_ref": sdpa_err, "sass": sass}
 
 
 def sass_counts(library: Path, kernel_name: str, opcodes) -> dict:
@@ -926,8 +1150,9 @@ def float_kernel_entry(name: str, source: str, checked: dict,
 
 def build_all() -> dict:
     """Build every kernel library, one ``nvcc`` each, all at once."""
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        list(pool.map(lambda lib: lib[1].load_library(), LIBRARIES))
+    loaders = [module.load_library for _, module in LIBRARIES]
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        list(pool.map(lambda load: load(), loaders))
     return {name: {"sources": [str(p.relative_to(ROOT))
                                for p in module.SOURCES],
                    "ptxas": [ln.strip() for ln in
@@ -1024,6 +1249,10 @@ def main(argv=None) -> int:
         "path_unshuffled(65536)": gen.path(1 << 16, shuffle_ids=False,
                                            device=DEVICE),
         "star(65536)": gen.star(1 << 16, device=DEVICE),
+        # every edge meets vertex 0 (the sweep kernels' checks only)
+        "one_hub(65536)": Graph.from_numpy(
+            np.zeros((1 << 16) - 1, np.int64), np.arange(1, 1 << 16),
+            1 << 16, device=DEVICE),
     }
     emit({"phase": "graphs", "seconds": time.perf_counter() - t0,
           "seconds_each": seconds,
@@ -1033,9 +1262,16 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    kernels.update(phase_kernels(rmat, star))
+    kernels.update(phase_kernels(
+        {rmat_name: rmat, delaunay_name: delaunay}, star, {
+            name: check_graphs[name] for name in (
+                f"delaunay_like({args.check_scale})",
+                f"rmat({args.check_scale},{RMAT_EDGE_FACTOR})",
+                "path_unshuffled(65536)", "star(65536)", "one_hub(65536)")}))
     del star
-    kernels["mm2"] = phase_mm2(check_graphs, async_graphs)
+    kernels["mm2"] = phase_mm2(
+        {name: g for name, g in check_graphs.items()
+         if not name.startswith("one_hub")}, async_graphs)
     del check_graphs
     emit({"phase": "kernels_vs_plain_done",
           "seconds": time.perf_counter() - t0})

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 # the kernels' element types, by the code their C interfaces take
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -30,7 +30,8 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 def check_dtype(name: str, t: torch.Tensor) -> None:
     if t.dtype not in DTYPES:
-        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+        raise TypeError(f"{name} must be float32, bfloat16 or float16, got "
+                        f"{t.dtype}")
 
 
 def raise_on_error(rc: int, what: str, error_string) -> None:

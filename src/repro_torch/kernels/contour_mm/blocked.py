@@ -1,4 +1,5 @@
-"""The two min-mapping sweep kernels: wrappers, plain versions, counters.
+"""The two min-mapping sweep kernels: wrappers, plain versions, counters,
+and plain replays of the kernels' updates.
 
 The port's counterpart of ``repro.kernels.contour_mm.blocked``.  Both
 kernels are hand-written CUDA for Hopper in ``csrc/contour_mm.cu`` (see
@@ -12,11 +13,29 @@ its header for what bounds them and how the design answers it):
   stream (replaces ``binned_scatter_min_pallas``); the order-1 and
   order-h sweeps go through it.
 
+A warp takes a step of ``32 * E`` consecutive items (``E`` =
+:data:`FUSED_ITEMS_PER_LANE` edges or :data:`SCATTER_ITEMS_PER_LANE`
+updates), lane ``l`` items ``l, l + 32, ...``; slot ``j`` of a step is
+the lanes' ``j``-th update (an edge makes four: ``s, d, L[s], L[d]``).
+An edge's four targets are deduplicated, an update that cannot lower its
+target's input label is dropped, the rest read the output label through
+L1 and drop out where it is already low enough, and in a hot slot (its
+first live lane's target shared by :data:`HOT_LANES` live lanes, before
+that test) the lanes of each target combine into one red.
+:func:`fused_relax_combined_replay` and :func:`scatter_min_combined_replay`
+replay that in plain torch, item to (step, slot, lane) as the kernels map
+them, and return the labels with the counts that depend only on the
+input: the updates before the test and the hot slots.  On the CPU they
+are test-only, and on the card ``chip_smoke.py`` holds the kernels'
+counts to theirs.
+
 Each wrapper runs its kernel on a CUDA tensor, or raises; its plain torch
 version (``*_plain``) runs only when the tensors lie on the CPU.  The
 wrapper allocates the output (a copy of ``L``), launches on the current
 stream, raises if the launch reports an error, and adds one to its
-``launches`` count for every kernel launch.
+``launches`` count for every kernel launch.  :func:`fused_relax_sweep` and
+:func:`scatter_min_sweep` launch on CUDA tensors and, with ``counts``,
+return the kernel's counts of :data:`COUNTERS` too.
 
 Ids outside ``[0, n)`` (``n = len(L)``) raise ``IndexError`` on both
 devices: the plain versions check before they gather, and the kernels
@@ -31,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,21 +60,39 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "contour_mm.cu",)
 LIBRARY = "contour_mm"
 
+# the kernels' constants (csrc/contour_mm.cu): items a lane a step, and the
+# live lanes on one target that make a slot hot
+FUSED_ITEMS_PER_LANE = 2
+SCATTER_ITEMS_PER_LANE = 4
+HOT_LANES = 8
+# what ``counts=True`` returns, in this order: the updates before the test
+# of the output label, the hot slots (steps times slots), the updates left
+# after the test, and the reds issued to memory after the combine.  The
+# first two depend only on the input; the replays count them too.
+COUNTERS = ("reds_before_test", "hot_slots", "reds_after_test",
+            "reds_to_memory")
+
 _P = ctypes.c_void_p
 
 _FUSED_IDS = "fused_relax: an edge endpoint or a label at one"
 _SCATTER_IDS = "scatter_min: an update target"
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the API of a ``contour_mm`` library."""
+    i64, i32 = ctypes.c_int64, ctypes.c_int
+    lib.contour_fused_relax.argtypes = [_P, _P, _P, _P, i64, _P, i64, _P,
+                                        _P]
+    lib.contour_fused_relax.restype = i32
+    lib.contour_scatter_min.argtypes = [_P, _P, _P, _P, _P, i64, _P, i64,
+                                        _P, _P]
+    lib.contour_scatter_min.restype = i32
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build (on first use) and load ``libcontour_mm``; declare its API."""
-    lib = _build.load_library(LIBRARY, SOURCES)
-    i64 = ctypes.c_int64
-    lib.contour_fused_relax.argtypes = [_P, _P, _P, _P, i64, i64, _P, _P]
-    lib.contour_fused_relax.restype = ctypes.c_int
-    lib.contour_scatter_min.argtypes = [_P, _P, _P, _P, _P, i64, i64, _P, _P]
-    lib.contour_scatter_min.restype = ctypes.c_int
-    return lib
+    return declare(_build.load_library(LIBRARY, SOURCES))
 
 
 def check_int32(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -104,6 +141,19 @@ def edge_count(m: int, edge_limit) -> int:
     return max(0, min(m, int(edge_limit)))
 
 
+def _counter(counts: bool, device: torch.device) -> Optional[torch.Tensor]:
+    """The kernel's counter, zeroed, when ``counts`` asks for it."""
+    if not counts:
+        return None
+    return torch.zeros(len(COUNTERS), dtype=torch.int64, device=device)
+
+
+def _result(out: torch.Tensor, counter: Optional[torch.Tensor]):
+    if counter is None:
+        return out
+    return out, dict(zip(COUNTERS, counter.tolist()))
+
+
 # ---------------------------------------------------------------------------
 # fused_relax (K1)
 # ---------------------------------------------------------------------------
@@ -123,6 +173,39 @@ def fused_relax_plain(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return L.scatter_reduce(0, idx, z.repeat(4), "amin", include_self=True)
 
 
+def check_edges(L: torch.Tensor, src: torch.Tensor,
+                dst: torch.Tensor) -> None:
+    check_int32("L", L, L.device)
+    check_int32("src", src, L.device)
+    check_int32("dst", dst, L.device)
+    if src.shape != dst.shape:
+        raise ValueError(f"src/dst shape mismatch: {tuple(src.shape)} vs "
+                         f"{tuple(dst.shape)}")
+
+
+def fused_relax_sweep(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                      edge_limit=None, *, check: bool = True,
+                      counts: bool = False):
+    """Launch the kernel once on CUDA tensors; returns the new labels, and
+    with ``counts`` also the counts of :data:`COUNTERS` (which waits for
+    the kernel).  :func:`fused_relax` is this at the defaults."""
+    check_edges(L, src, dst)
+    if not on_cuda(L):
+        raise ValueError("fused_relax's kernel takes CUDA tensors; "
+                         "fused_relax() runs the plain version on CPU "
+                         "tensors")
+    L, src, dst = L.contiguous(), src.contiguous(), dst.contiguous()
+    m = edge_count(int(src.shape[0]), edge_limit)
+    out = L.clone()
+    counter = _counter(counts, L.device)
+    if m > 0:
+        launch(load_library().contour_fused_relax, L.data_ptr(),
+               out.data_ptr(), src.data_ptr(), dst.data_ptr(), m,
+               None if counter is None else counter.data_ptr(),
+               wrapper=fused_relax, check=check, what=_FUSED_IDS, L=L)
+    return _result(out, counter)
+
+
 def fused_relax(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                 edge_limit=None, *, check: bool = True) -> torch.Tensor:
     """One synchronous order-2 min-mapping sweep; returns new labels.
@@ -136,26 +219,80 @@ def fused_relax(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     ``check=False`` skips such an edge instead and does not wait for the
     kernel.
     """
-    check_int32("L", L, L.device)
-    check_int32("src", src, L.device)
-    check_int32("dst", dst, L.device)
-    if src.shape != dst.shape:
-        raise ValueError(f"src/dst shape mismatch: {tuple(src.shape)} vs "
-                         f"{tuple(dst.shape)}")
+    check_edges(L, src, dst)
     if not on_cuda(L):
         return fused_relax_plain(L, src, dst, edge_limit)
-    L, src, dst = L.contiguous(), src.contiguous(), dst.contiguous()
-    m = edge_count(int(src.shape[0]), edge_limit)
-    out = L.clone()
-    if m > 0:
-        lib = load_library()
-        launch(lib.contour_fused_relax, L.data_ptr(), out.data_ptr(),
-               src.data_ptr(), dst.data_ptr(), m, wrapper=fused_relax,
-               check=check, what=_FUSED_IDS, L=L)
-    return out
+    return fused_relax_sweep(L, src, dst, edge_limit, check=check)
 
 
 fused_relax.launches = 0
+
+
+def _hot_slots(slots: torch.Tensor, per_lane: int) -> int:
+    """The hot slots of a kernel's steps.  ``slots`` is (items, w): item
+    ``e``'s ``w`` update targets, -1 where it has none.  As the kernels map
+    them, item ``e`` is lane ``e % 32`` of row ``(e // 32) % per_lane`` of
+    step ``e // (32 * per_lane)``, and each (step, row, column) is one
+    slot of the warp; a slot is hot where its first live lane's target is
+    the target of :data:`HOT_LANES` live lanes."""
+    items, w = slots.shape
+    if items == 0:
+        return 0
+    chunk = 32 * per_lane
+    t = torch.cat([slots, slots.new_full(((-items) % chunk, w), -1)])
+    t = t.reshape(-1, per_lane, 32, w).permute(0, 1, 3, 2).reshape(-1, 32)
+    live = t >= 0
+    first = t.gather(1, live.to(torch.uint8).argmax(1, keepdim=True))
+    same = ((t == first) & live).sum(1)
+    return int((live.any(1) & (same >= HOT_LANES)).sum())
+
+
+def _replay(L: torch.Tensor, slots: torch.Tensor, values: torch.Tensor,
+            per_lane: int) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """The updates ``slots[e, j] >= 0`` with value ``values[e]`` applied to
+    a copy of ``L``, and the counts that depend only on the input."""
+    live = slots >= 0
+    out = L.scatter_reduce(0, slots[live].long(),
+                           values[:, None].expand_as(slots)[live], "amin",
+                           include_self=True)
+    return out, {"reds_before_test": int(live.sum()),
+                 "hot_slots": _hot_slots(slots, per_lane)}
+
+
+def fused_relax_combined_replay(L: torch.Tensor, src: torch.Tensor,
+                                dst: torch.Tensor, edge_limit=None, *,
+                                dedupe: bool = True,
+                                items_per_lane: int = FUSED_ITEMS_PER_LANE
+                                ) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """The fused kernel's updates, replayed in plain torch: the labels and
+    the counts ``reds_before_test`` and ``hot_slots`` of :data:`COUNTERS`.
+
+    Each edge's targets ``s, d, L[s], L[d]`` (its four slots) that can
+    lower their input label become updates ``(target, z)``; a later copy
+    of an earlier target of the edge is dropped (its label, so its
+    condition, is the same).  ``dedupe=False`` is the control that keeps
+    every copy; ``items_per_lane`` other than the kernel's maps the edges
+    to other steps.  The kernel's counter holds the same numbers; the reds
+    it then issues to memory depend on the order in which they land.
+    """
+    check_edges(L, src, dst)
+    n = int(L.shape[0])
+    m = edge_count(int(src.shape[0]), edge_limit)
+    s, d = src[:m], dst[:m]
+    _check_ids(_FUSED_IDS, torch.cat([s, d]), n)
+    ls, ld = L[s], L[d]
+    _check_ids(_FUSED_IDS, torch.cat([ls, ld]), n)
+    l2s, l2d = L[ls], L[ld]
+    z = torch.minimum(l2s, l2d)
+    targets = (s, d, ls, ld)
+    live = [z < ls, z < ld, z < l2s, z < l2d]
+    if dedupe:
+        for k in range(1, 4):
+            for j in range(k):
+                live[k] = live[k] & (targets[k] != targets[j])
+    slots = torch.stack([torch.where(live[k], targets[k], -1)
+                         for k in range(4)], dim=1)
+    return _replay(L, slots, z, items_per_lane)
 
 
 # ---------------------------------------------------------------------------
@@ -174,14 +311,9 @@ def scatter_min_plain(L: torch.Tensor, targets: torch.Tensor,
                             include_self=True)
 
 
-def scatter_min(L: torch.Tensor, targets: torch.Tensor, values: torch.Tensor,
-                valid: Optional[torch.Tensor] = None, *,
-                check: bool = True) -> torch.Tensor:
-    """``L.at[targets].min(values)``, skipping updates where ``valid`` is
-    False; returns new labels (``L`` is not modified).  A live target
-    outside ``[0, len(L))`` raises IndexError; on the card,
-    ``check=False`` skips such an update instead and does not wait for
-    the kernel."""
+def check_updates(L: torch.Tensor, targets: torch.Tensor,
+                  values: torch.Tensor,
+                  valid: Optional[torch.Tensor]) -> None:
     check_int32("L", L, L.device)
     check_int32("targets", targets, L.device)
     check_int32("values", values, L.device)
@@ -195,22 +327,66 @@ def scatter_min(L: torch.Tensor, targets: torch.Tensor, values: torch.Tensor,
                             f"{tuple(valid.shape)}")
         if valid.device != L.device:
             raise ValueError(f"valid is on {valid.device}, L on {L.device}")
+
+
+def scatter_min_sweep(L: torch.Tensor, targets: torch.Tensor,
+                      values: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None, *,
+                      check: bool = True, counts: bool = False):
+    """Launch the kernel once on CUDA tensors; returns the new labels, and
+    with ``counts`` also the counts of :data:`COUNTERS` (which waits for
+    the kernel).  :func:`scatter_min` is this at the defaults."""
+    check_updates(L, targets, values, valid)
     if not on_cuda(L):
-        return scatter_min_plain(L, targets, values, valid)
+        raise ValueError("scatter_min's kernel takes CUDA tensors; "
+                         "scatter_min() runs the plain version on CPU "
+                         "tensors")
     L, targets, values = L.contiguous(), targets.contiguous(), \
         values.contiguous()
     if valid is not None:
         valid = valid.contiguous()
     k = int(targets.shape[0])
     out = L.clone()
+    counter = _counter(counts, L.device)
     if k > 0:
-        lib = load_library()
-        launch(lib.contour_scatter_min, L.data_ptr(), out.data_ptr(),
-               targets.data_ptr(), values.data_ptr(),
+        launch(load_library().contour_scatter_min, L.data_ptr(),
+               out.data_ptr(), targets.data_ptr(), values.data_ptr(),
                None if valid is None else valid.data_ptr(), k,
+               None if counter is None else counter.data_ptr(),
                wrapper=scatter_min, check=check, what=_SCATTER_IDS, L=L)
-    return out
+    return _result(out, counter)
+
+
+def scatter_min(L: torch.Tensor, targets: torch.Tensor, values: torch.Tensor,
+                valid: Optional[torch.Tensor] = None, *,
+                check: bool = True) -> torch.Tensor:
+    """``L.at[targets].min(values)``, skipping updates where ``valid`` is
+    False; returns new labels (``L`` is not modified).  A live target
+    outside ``[0, len(L))`` raises IndexError; on the card,
+    ``check=False`` skips such an update instead and does not wait for
+    the kernel."""
+    check_updates(L, targets, values, valid)
+    if not on_cuda(L):
+        return scatter_min_plain(L, targets, values, valid)
+    return scatter_min_sweep(L, targets, values, valid, check=check)
 
 
 scatter_min.launches = 0
 
+
+def scatter_min_combined_replay(L: torch.Tensor, targets: torch.Tensor,
+                                values: torch.Tensor,
+                                valid: Optional[torch.Tensor] = None, *,
+                                items_per_lane: int = SCATTER_ITEMS_PER_LANE
+                                ) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """The scatter kernel's updates, replayed in plain torch: the labels
+    and the counts ``reds_before_test`` (the updates that ``valid`` keeps
+    and whose value is below their target's input label) and
+    ``hot_slots`` of :data:`COUNTERS`."""
+    check_updates(L, targets, values, valid)
+    keep = torch.ones(targets.shape, dtype=torch.bool, device=L.device) \
+        if valid is None else valid
+    _check_ids(_SCATTER_IDS, targets[keep], int(L.shape[0]))
+    live = keep & (values < L[torch.where(keep, targets, 0)])
+    return _replay(L, torch.where(live, targets, -1)[:, None], values,
+                   items_per_lane)

@@ -6,9 +6,9 @@
 //              (blocked.py:236, body _fused_relax_kernel :193).  One
 //              synchronous order-2 sweep: per edge (s, d) it reads
 //              ls = L[s], ld = L[d], z = min(L[ls], L[ld]) from the input
-//              labels and atomicMin-s z into {s, d, ls, ld} of a separate
-//              output array seeded with the input.  On the TPU the whole of
-//              L had to fit one VMEM tile (n <= 4096) and the gathers were
+//              labels and min-s z into {s, d, ls, ld} of a separate output
+//              array seeded with the input.  On the TPU the whole of L had
+//              to fit one VMEM tile (n <= 4096) and the gathers were
 //              one-hot compares; here every thread gathers from device
 //              memory directly, so there is no n limit and no padding.
 //
@@ -17,39 +17,73 @@
 //              _scatter_min_kernel :54).  L_out[targets[i]] min= values[i]
 //              over the 2h*m update stream, skipping updates whose valid
 //              byte is 0.  The TPU radix-sorted the stream by label block
-//              and combined one-hot per tile; on Hopper a global atomicMin
-//              per update needs no sort at all.
+//              and combined one-hot per tile; here the updates are combined
+//              in the warp where they pile up, and reduced at L2.
 //
 // What bounds them on an H100 (3.35 TB/s HBM, 50 MB L2): random 4-byte
-// gathers and atomics, not arithmetic.  Each edge reads 8 contiguous bytes
-// of src/dst but then makes four dependent random label reads, and each
-// update is a read-modify-write to a random address; a 32-byte sector is
-// fetched for every 4 bytes used unless L is L2-resident (it is up to
-// ~12M vertices).  The design answers that in three ways:
-//   * the edge and update streams are read coalesced, one element per
-//     thread in a grid-stride loop, so the only scattered traffic is the
-//     label traffic the algorithm itself needs;
-//   * an atomic is issued only when it can lower the label: the output
-//     starts as a copy of the input and only ever decreases, so a target
-//     whose input label is already <= z cannot change and is skipped.
-//     For fused_relax the four input labels of the targets are exactly the
-//     values the gathers already loaded (L[s] = ls, L[d] = ld, L[ls],
-//     L[ld]), so the test costs no extra read.  Near convergence almost
-//     every atomic is skipped;
-//   * reads of the input labels go through the read-only path (__ldg) on
-//     an array that the kernel never writes.
-// Hub vertices (a star's centre) receive one atomic from every incident
-// update, and those serialise at one address; a per-block shared-memory
-// pre-combine for hot label blocks is left to a later change.
+// gathers and read-modify-writes at random addresses, not arithmetic.  An
+// edge makes two levels of dependent label reads, and each red (a
+// reduction at L2 with no result) is a read-modify-write that serialises
+// with every other red to its address.  Where updates pile onto a few
+// targets (a power-law graph's hubs on the first sweep, its hub labels on
+// the second, a star's centre) those reds queue at one L2 slice; on a mesh
+// they spread out and cost little.  The design (each choice timed against
+// the others by tools/sweep_variants.py; PERF.md, section 6):
+//   * one warp a step of 32 * E consecutive items (E = 2 edges for
+//     fused_relax, 4 updates for scatter_min), lane l items l, l + 32, ...:
+//     each load of a stream is 128 contiguous bytes (4-byte loads,
+//     evict-first: the streams are read once, L stays in L2), and a warp
+//     instruction's label reads and reds fall in few L2 sectors where the
+//     graph has locality.  A lane's first-level label reads all go out
+//     before any second-level one.  A block is 8 warps and the grid one
+//     step a warp, so the blocks' order of issue balances the load;
+//   * one update per target an edge: where an endpoint is a root
+//     (L[v] == v), v and L[v] are one address with one condition and one
+//     value, so an edge's four targets are deduplicated in registers (a
+//     later copy of a target is dropped): on the first sweep from identity
+//     labels that halves the updates;
+//   * no update that cannot lower its label.  The output starts as a copy
+//     of the input and only decreases, so an update whose value is not
+//     below the input label of its target is dropped (fused_relax has
+//     those labels from its gathers; scatter_min reads them), and a step
+//     with no update left in any lane ends on one warp vote (the fixed
+//     point costs only the gathers);
+//   * the test before the red: the lane reads L_out[t] of all its updates
+//     at once, through L1, and drops those it already meets.  A value read
+//     from L1 may be older than L2's, never lower, so the test is sound;
+//     on a hub, whose label falls early in the sweep, it keeps nearly every
+//     red out of the queue;
+//   * the warp combine, only where a slot is hot: while the test's reads
+//     are in flight, each slot (the lanes' j-th update) is tested on its
+//     targets before the test: hot where its first live lane's target is
+//     shared by at least kHot lanes.  After the test, a hot slot's lanes
+//     group by target (__match_any_sync), take their group's minimum
+//     (__reduce_min_sync), and only the group's first lane keeps the
+//     update.  That turns up to 32 reds to a hub into one where the test
+//     cannot help (a sweep's first wave of warps, which all read the hub's
+//     label before any red lands); a slot of spread-out targets never runs
+//     MATCH, which costs more per slot than the reds it saves there;
+//   * the red itself is atomicMin with its result unused, which compiles to
+//     REDG, not ATOMG.
+// Labels are read through the read-only path (__ldg) from L_in, which the
+// kernels never write.  Every load is of one 4-byte item (one byte of the
+// valid mask), so any 4-byte-aligned base (a slice) and any length are
+// taken.
 //
 // Index ranges are checked here, on the card: every id the kernels follow
 // (an edge endpoint, the label found there, an update target) is compared
 // with n before it is used.  An id outside [0, n) is never read or written
 // through; its edge or update is skipped and, when the caller passes an
 // error word, the word is set to 1 so that the wrapper raises IndexError.
-// The Python wrappers check the rest: int32 arrays, contiguous, on the
-// current device, L_in and L_out distinct.  Each launcher returns the
-// cudaGetLastError() code of its launch (0 = cudaSuccess).
+// An optional int64[4] counter receives, in this order: the updates before
+// the test (the items' live updates, an edge's copies of a target
+// dropped), the hot slots (warp-steps times slots), the updates left after
+// the test, and the reds issued to memory (after the combine).  The first
+// two depend only on the input, the last two also on the order in which
+// the reds land.  The Python wrappers check the rest: int32 arrays,
+// contiguous, on the current device, L_in and L_out distinct.  Each
+// launcher returns the cudaGetLastError() code of its launch (0 =
+// cudaSuccess).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +91,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kFusedEdges = 2;     // edges a lane a step
+constexpr int kScatterUpdates = 4; // updates a lane a step
+constexpr int kHot = 8;            // lanes on one target that make a slot hot
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ bool outside(int id, int64_t n) {
   return id < 0 || (int64_t)id >= n;
@@ -67,66 +106,192 @@ __device__ __forceinline__ void flag(int* err) {
   if (err != nullptr) *err = 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_relax_kernel(const int* __restrict__ L_in, int* __restrict__ L_out,
-                   const int* __restrict__ src, const int* __restrict__ dst,
-                   int64_t m, int64_t n, int* err) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < m;
-       e += stride) {
-    const int s = src[e];
-    const int d = dst[e];
-    if (outside(s, n) || outside(d, n)) {
-      flag(err);
-      continue;
-    }
-    const int ls = __ldg(L_in + s);
-    const int ld = __ldg(L_in + d);
-    if (outside(ls, n) || outside(ld, n)) {
-      flag(err);
-      continue;
-    }
-    const int l2s = __ldg(L_in + ls);
-    const int l2d = __ldg(L_in + ld);
-    const int z = min(l2s, l2d);
-    if (z < ls) atomicMin(L_out + s, z);
-    if (z < ld) atomicMin(L_out + d, z);
-    if (z < l2s) atomicMin(L_out + ls, z);
-    if (z < l2d) atomicMin(L_out + ld, z);
+// The lanes of one slot that hold an update (t >= 0) group by target; each
+// group's first lane keeps the group's minimum value, the others drop out.
+__device__ __forceinline__ void combine(int& t, int& v) {
+  const unsigned live = __ballot_sync(kFull, t >= 0);
+  if (__popc(live) < 2 || t < 0) return;
+  const unsigned bit = 1u << (threadIdx.x & 31);
+  const unsigned group = __match_any_sync(live, t);
+  if (group != bit) {
+    v = __reduce_min_sync(group, v);
+    if (group & (bit - 1)) t = -1;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The warp's updates (t[j], v[j]) of this step, t[j] = -1 where a lane has
+// none in slot j: the test of L_out, the combine of the hot slots, then
+// one red each.  c gathers the counter's four numbers.
+template <int N>
+__device__ __forceinline__ void reds(int* __restrict__ L_out, int (&t)[N],
+                                     int (&v)[N], unsigned (&c)[4]) {
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < N; ++j) any |= t[j] >= 0;
+  if (!__any_sync(kFull, any)) return;
+  int cur[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    c[0] += t[j] >= 0;
+    cur[j] = t[j] >= 0 ? __ldca(L_out + t[j]) : 0;
+  }
+  // which slots are hot, on the targets before the test
+  unsigned hot = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const unsigned live = __ballot_sync(kFull, t[j] >= 0);
+    if (__popc(live) >= kHot) {
+      const int first = __shfl_sync(kFull, t[j], __ffs(live) - 1);
+      if (__popc(__ballot_sync(kFull, t[j] == first)) >= kHot)
+        hot |= 1u << j;
+    }
+  }
+  if ((threadIdx.x & 31) == 0) c[1] += __popc(hot);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (cur[j] <= v[j]) t[j] = -1;
+    c[2] += t[j] >= 0;
+  }
+  if (hot) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (hot >> j & 1) combine(t[j], v[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (t[j] >= 0) {
+      atomicMin(L_out + t[j], v[j]);
+      ++c[3];
+    }
+  }
+}
+
+// The warp's counts into counter[0..3]; counter may be null.
+__device__ __forceinline__ void count(unsigned long long* counter,
+                                      const unsigned (&c)[4]) {
+  if (counter == nullptr) return;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned sum = __reduce_add_sync(kFull, c[k]);
+    if ((threadIdx.x & 31) == 0 && sum != 0)
+      atomicAdd(counter + k, (unsigned long long)sum);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 8)
+fused_relax_kernel(const int* __restrict__ L_in, int* __restrict__ L_out,
+                   const int* __restrict__ src, const int* __restrict__ dst,
+                   int64_t m, int64_t n, int* err,
+                   unsigned long long* counter) {
+  constexpr int E = kFusedEdges;
+  const int64_t e0 = ((int64_t)blockIdx.x * kWarps + threadIdx.x / 32) *
+                         (32 * E) +
+                     (threadIdx.x & 31);
+  // every load of the lane before any check (a check may store to err,
+  // which would hold back the loads after it)
+  int s[E], d[E];
+  bool ok[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    ok[i] = e0 + 32 * i < m;
+    s[i] = ok[i] ? __ldcs(src + e0 + 32 * i) : 0;
+    d[i] = ok[i] ? __ldcs(dst + e0 + 32 * i) : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    if (ok[i] && (outside(s[i], n) || outside(d[i], n))) {
+      flag(err);
+      ok[i] = false;
+    }
+  }
+  // every first-level read of the lane, then every second-level one
+  int ls[E], ld[E], l2s[E], l2d[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    ls[i] = ok[i] ? __ldg(L_in + s[i]) : 0;
+    ld[i] = ok[i] ? __ldg(L_in + d[i]) : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    if (ok[i] && (outside(ls[i], n) || outside(ld[i], n))) {
+      flag(err);
+      ok[i] = false;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    l2s[i] = ok[i] ? __ldg(L_in + ls[i]) : 0;
+    l2d[i] = ok[i] ? __ldg(L_in + ld[i]) : 0;
+  }
+  // each target with its input label; a later copy of an earlier target
+  // has the same label, so the same condition: dropped
+  int t[4 * E], v[4 * E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int z = min(l2s[i], l2d[i]);
+    t[4 * i] = ok[i] && z < ls[i] ? s[i] : -1;
+    t[4 * i + 1] = ok[i] && z < ld[i] && d[i] != s[i] ? d[i] : -1;
+    t[4 * i + 2] =
+        ok[i] && z < l2s[i] && ls[i] != s[i] && ls[i] != d[i] ? ls[i] : -1;
+    t[4 * i + 3] = ok[i] && z < l2d[i] && ld[i] != s[i] && ld[i] != d[i] &&
+                           ld[i] != ls[i]
+                       ? ld[i]
+                       : -1;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[4 * i + k] = z;
+  }
+  unsigned c[4] = {0, 0, 0, 0};
+  reds(L_out, t, v, c);
+  count(counter, c);
+}
+
+__global__ void __launch_bounds__(kThreads, 8)
 scatter_min_kernel(const int* __restrict__ L_in, int* __restrict__ L_out,
                    const int* __restrict__ targets,
                    const int* __restrict__ values,
                    const uint8_t* __restrict__ valid, int64_t k, int64_t n,
-                   int* err) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < k;
-       i += stride) {
-    if (valid != nullptr && valid[i] == 0) continue;
-    const int t = targets[i];
-    if (outside(t, n)) {
-      flag(err);
-      continue;
-    }
-    const int v = values[i];
-    if (v < __ldg(L_in + t)) atomicMin(L_out + t, v);
+                   int* err, unsigned long long* counter) {
+  constexpr int E = kScatterUpdates;
+  const int64_t e0 = ((int64_t)blockIdx.x * kWarps + threadIdx.x / 32) *
+                         (32 * E) +
+                     (threadIdx.x & 31);
+  // every load of the lane before any check, as in fused_relax
+  int t[E], v[E];
+  bool ok[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int64_t e = e0 + 32 * i;
+    ok[i] = e < k;
+    t[i] = ok[i] ? __ldcs(targets + e) : 0;
+    v[i] = ok[i] ? __ldcs(values + e) : 0;
   }
+  if (valid != nullptr) {
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      ok[i] = ok[i] && __ldcs(valid + e0 + 32 * i) != 0;
+  }
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    if (ok[i] && outside(t[i], n)) {
+      flag(err);
+      ok[i] = false;
+    }
+  }
+  int lab[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) lab[i] = ok[i] ? __ldg(L_in + t[i]) : 0;
+#pragma unroll
+  for (int i = 0; i < E; ++i)
+    if (!ok[i] || v[i] >= lab[i]) t[i] = -1;
+  unsigned c[4] = {0, 0, 0, 0};
+  reds(L_out, t, v, c);
+  count(counter, c);
 }
 
-// Enough blocks to fill every SM several times over; the grid-stride loop
-// covers the rest.
-int grid_for(int64_t work) {
-  int device = 0;
-  int sms = 132;
-  if (cudaGetDevice(&device) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  const int64_t cap = (int64_t)sms * 16;
-  const int64_t need = (work + kThreads - 1) / kThreads;
-  return (int)(need < cap ? need : cap);
+// One step a warp, eight warps a block.
+int64_t blocks_for(int64_t items, int per_lane) {
+  const int64_t steps = (items + 32 * per_lane - 1) / (32 * per_lane);
+  return (steps + kWarps - 1) / kWarps;
 }
 
 }  // namespace
@@ -134,26 +299,38 @@ int grid_for(int64_t work) {
 extern "C" {
 
 // Edges e >= m are not visited: the wrapper passes m = min(m, edge_limit).
-// n is the length of L_in and L_out; err (one int32, zeroed by the caller)
-// may be null.
+// src and dst are 4-byte aligned.  n is the length of L_in and L_out; err
+// (one int32, zeroed by the caller) and counter (four int64, zeroed by the
+// caller) may be null.
 int contour_fused_relax(const void* L_in, void* L_out, const void* src,
-                        const void* dst, int64_t m, int64_t n, void* err,
-                        void* stream) {
+                        const void* dst, int64_t m, void* counter, int64_t n,
+                        void* err, void* stream) {
   if (m <= 0) return (int)cudaSuccess;
-  fused_relax_kernel<<<grid_for(m), kThreads, 0, (cudaStream_t)stream>>>(
+  if ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
+      3)
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = blocks_for(m, kFusedEdges);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  fused_relax_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)L_in, (int*)L_out, (const int*)src, (const int*)dst, m, n,
-      (int*)err);
+      (int*)err, (unsigned long long*)counter);
   return (int)cudaGetLastError();
 }
 
-// valid may be null (every update live); n and err as above.
+// valid may be null (every update live); the rest as above.
 int contour_scatter_min(const void* L_in, void* L_out, const void* targets,
                         const void* values, const void* valid, int64_t k,
-                        int64_t n, void* err, void* stream) {
+                        void* counter, int64_t n, void* err, void* stream) {
   if (k <= 0) return (int)cudaSuccess;
-  scatter_min_kernel<<<grid_for(k), kThreads, 0, (cudaStream_t)stream>>>(
+  if ((reinterpret_cast<uintptr_t>(targets) |
+       reinterpret_cast<uintptr_t>(values)) &
+      3)
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = blocks_for(k, kScatterUpdates);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  scatter_min_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)L_in, (int*)L_out, (const int*)targets, (const int*)values,
-      (const uint8_t*)valid, k, n, (int*)err);
+      (const uint8_t*)valid, k, n, (int*)err, (unsigned long long*)counter);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // GQA flash attention (forward, streaming softmax) for Hopper (sm_90a),
-// behind a plain C interface: a bfloat16 kernel on wgmma, TMA and warp
-// specialisation, and a float32 kernel on the CUDA cores.
+// behind a plain C interface: a kernel for bfloat16 and float16 on wgmma,
+// TMA and warp specialisation, and a float32 kernel on the CUDA cores.
 //
 // flash_mha  replaces repro/kernels/flash_attention/kernel.py::flash_mha
 //      (kernel.py:77, body _flash_kernel :30).  For q (B, H, T, hd) and
@@ -20,31 +20,34 @@
 //
 // What bounds it on an H100: operations.  The work is 4 * T * S * hd
 // floating-point operations a head (half of it when causal) against
-// (2T + 2S) * hd elements moved: in bfloat16 T * S / (T + S) operations a
-// byte, 2,048 at T = S = 4096 (1,024 causal), far above the ~295 at which
-// the bf16 tensor cores and not the memory are the limit.  At
+// (2T + 2S) * hd elements moved: in a 16-bit type T * S / (T + S)
+// operations a byte, 2,048 at T = S = 4096 (1,024 causal), far above the
+// ~295 at which the bf16 and fp16 tensor cores (989 TFLOP/s each) and not
+// the memory are the limit.  At
 // mistral-nemo-12b's heads (B = 2, H = 32, T = S = 4096, hd = 128, causal)
 // that is 2.749e11 FLOP: 0.278 ms at 989 TFLOP/s.
 //
-// bfloat16: flash_wgmma_kernel.  One CTA of three warpgroups per
+// bfloat16 and float16: flash_wgmma_kernel<D, T>, T = __nv_bfloat16 or
+// __half (the same kernel; the products are wgmma's .bf16 or .f16 forms, the
+// tensor maps of that type).  One CTA of three warpgroups per
 // (128-query tile, batch * head).  A producer warpgroup lowers its
 // registers (setmaxnreg) and one of its threads issues TMA loads: the Q
 // tile once, then K and V tiles into a ring of two stages, each with a
 // full mbarrier (TMA's byte count) for K and for V and an empty mbarrier
 // (one arrival from each consumer warp, after its P V product).  The loads
 // use 3-D tensor maps (hd, T or S, B * heads), built on the host and passed
-// as __grid_constant__ parameters, with 128-byte swizzle: 64 bf16 columns
+// as __grid_constant__ parameters, with 128-byte swizzle: 64 16-bit columns
 // a panel, so rows past T or S and columns past hd arrive as zeros and are
 // never read from the next head.  Two consumer warpgroups raise their
 // registers and own 64 query rows each.  S = Q K^T is wgmma m64nBk k16
-// (bf16 -> f32) with both operands read from shared memory through
+// (T -> f32) with both operands read from shared memory through
 // descriptors (K-major); the online softmax runs in registers on the
 // accumulator's fragments (row max and sum over the quad of threads that
 // share a row, exp2 with scale * log2(e) folded in, masks only on tiles
 // that cross the diagonal or S); O += P V is wgmma with P from registers
 // (the S fragments are already the A operand's layout) and V from shared
 // memory as stored (MN-major, transposed by the descriptor).  Each consumer
-// writes its 64 output rows in bf16 into its own rows of the Q tile, in the
+// writes its 64 output rows in T into its own rows of the Q tile, in the
 // same swizzle, and one of its threads stores them with TMA through a map
 // of O, which clips rows past T and columns past hd.  Head dims are
 // rounded up to a bucket D in {64, 128, 192, 256}; the key tile Bk is 128,
@@ -58,9 +61,11 @@
 // P keeps float32's precision: the reference multiplies P by V in float32
 // (kernel.py:52-65), and P rounded to bfloat16 (as SDPA does) is off the
 // exact output by an rms ratio of ~2e-3, four times the check's limit.  So
-// P is split, P_hi = bf16(P) and P_lo = bf16(P - P_hi), and both are
-// multiplied by V into the same float32 accumulator; the residual is about
-// 2^-17 of P.  The tensor cores then issue 1.5x the counted work (a third
+// P is split, P_hi = T(P) and P_lo = T(P - P_hi), and both are multiplied
+// by V into the same float32 accumulator; the residual is about 2^-17 of P
+// in bfloat16 and 2^-22 in float16 (below P = 2^-3, where P_lo is a float16
+// subnormal, at most 2^-25 absolute, against a row's largest P of 1).  The
+// tensor cores then issue 1.5x the counted work (a third
 // product of the same size as each of the two counted ones): 4.12e11 FLOP
 // at nemo's shape, 0.417 ms at the peak rate.  Not done here: an overlap of
 // one warpgroup's softmax with the other's products (pingpong), and of a
@@ -86,6 +91,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,11 +101,11 @@ constexpr int kMaxHd = 256;
 constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
-// bfloat16: wgmma + TMA + warp specialisation
+// bfloat16 and float16: wgmma + TMA + warp specialisation
 
 constexpr int kBq = 128;         // query rows a CTA
 constexpr int kThreadsW = 384;   // producer + two consumer warpgroups
-constexpr int kPanel = 64;       // bf16 columns in one 128-byte swizzled row
+constexpr int kPanel = 64;       // 16-bit columns in one 128-byte swizzled row
 constexpr int kRowBytes = 128;
 constexpr int kConsumerWarps = 8;
 
@@ -217,13 +223,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 // d (64 x N, f32) = [d +] A (64 x 16) B (16 x N): A and B in shared memory,
-// both K-major
-template <int N>
+// both K-major; T = __nv_bfloat16 or __half, the type of A and B
+template <int N, typename T>
 __device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                          int accumulate);
 // d (64 x N, f32) += A (64 x 16, registers) B (16 x N): B in shared memory,
 // MN-major (transposed)
-template <int N>
+template <int N, typename T>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                          uint64_t db);
 
@@ -233,114 +239,104 @@ __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
       "+f"(d[(i) + 7])
 #define WG_D32(i) WG_D8(i), WG_D8((i) + 8), WG_D8((i) + 16), WG_D8((i) + 24)
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D32(0)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// the accumulator's operands in the asm strings
+#define WG_ACC32                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_ACC64                                                              \
+  WG_ACC32 ","                                                                \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_ACC96                                                              \
+  WG_ACC64 ","                                                                \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define WG_ACC128                                                             \
+  WG_ACC96 ","                                                                \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_D32(0), WG_D32(32)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// One instance of each form for element type T, named TY in PTX ("bf16",
+// "f16"); PRED, A and B are the operand numbers after the accumulator's.
+#define WGMMA_SS(N, T, TY, ACC, PRED, A, B, ...)                         \
+  template <>                                                            \
+  __device__ __forceinline__ void wgmma_ss<N, T>(                        \
+      float(&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"       \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY    \
+                 "." TY " {" ACC "}, " A ", " B ", p, 1, 1, 0, 0;\n}\n"  \
+                 : __VA_ARGS__                                           \
+                 : "l"(da), "l"(db), "r"(accumulate));                   \
+  }
+#define WGMMA_RS(N, T, TY, ACC, PRED, A, B, ...)                         \
+  template <>                                                            \
+  __device__ __forceinline__ void wgmma_rs<N, T>(                        \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t db) {            \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"       \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY    \
+                 "." TY " {" ACC "}, " A ", " B ", p, 1, 1, 1;\n}\n"     \
+                 : __VA_ARGS__                                           \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),  \
+                   "r"(1));                                              \
+  }
+#define WGMMA_ALL(T, TY)                                                  \
+  WGMMA_SS(64, T, TY, WG_ACC32, "%34", "%32", "%33", WG_D32(0))           \
+  WGMMA_SS(128, T, TY, WG_ACC64, "%66", "%64", "%65", WG_D32(0),          \
+           WG_D32(32))                                                    \
+  WGMMA_RS(64, T, TY, WG_ACC32, "%37", "{%32, %33, %34, %35}", "%36",     \
+           WG_D32(0))                                                     \
+  WGMMA_RS(128, T, TY, WG_ACC64, "%69", "{%64, %65, %66, %67}", "%68",    \
+           WG_D32(0), WG_D32(32))                                         \
+  WGMMA_RS(192, T, TY, WG_ACC96, "%101", "{%96, %97, %98, %99}", "%100",  \
+           WG_D32(0), WG_D32(32), WG_D32(64))                             \
+  WGMMA_RS(256, T, TY, WG_ACC128, "%133", "{%128, %129, %130, %131}",     \
+           "%132", WG_D32(0), WG_D32(32), WG_D32(64), WG_D32(96))
 
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+WGMMA_ALL(__nv_bfloat16, "bf16")
+WGMMA_ALL(__half, "f16")
 
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_D32(0), WG_D32(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : WG_D32(0), WG_D32(32), WG_D32(64)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : WG_D32(0), WG_D32(32), WG_D32(64), WG_D32(96)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
+#undef WGMMA_ALL
+#undef WGMMA_RS
+#undef WGMMA_SS
+#undef WG_ACC128
+#undef WG_ACC96
+#undef WG_ACC64
+#undef WG_ACC32
 #undef WG_D32
 #undef WG_D8
 
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// The 16-bit element types: two floats rounded to nearest even into one
+// 32-bit register and back, and the type's name for a tensor map.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+  }
+};
+template <>
+struct Elem<__half> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    __half2 v = __floats2half2_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<__half2*>(&u));
+  }
+};
 
-// D = head-dim bucket.  Thread layout of an m64nN accumulator: warp w of
-// the warpgroup holds rows 16w + lane / 4 and + 8; element i is in row
-// half (i / 2) % 2, column 8 (i / 4) + 2 (lane % 4) + i % 2.
-template <int D>
+// D = head-dim bucket, T = the element type.  Thread layout of an m64nN
+// accumulator: warp w of the warpgroup holds rows 16w + lane / 4 and + 8;
+// element i is in row half (i / 2) % 2, column 8 (i / 4) + 2 (lane % 4) +
+// i % 2.
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreadsW, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -434,7 +430,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const int p = ks / 4, kk = ks % 4;
-        wgmma_ss<kBk>(
+        wgmma_ss<kBk, T>(
             sc,
             smem_desc(sQw + p * kBq * kRowBytes + kk * 32, 16, 8 * kRowBytes),
             smem_desc(sKs + p * kBk * kRowBytes + kk * 32, 16, 8 * kRowBytes),
@@ -468,8 +464,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         m[r] = mx[r];
         l[r] *= corr[r];
       }
-      // P, split into bf16 hi and lo halves in the A operand's layout: the
-      // 16 keys of step kk are accumulator elements 8kk .. 8kk + 7
+      // P, split into hi and lo halves of type T in the A operand's layout:
+      // the 16 keys of step kk are accumulator elements 8kk .. 8kk + 7
       uint32_t p_hi[kBk / 16][4], p_lo[kBk / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kBk / 16; ++kk) {
@@ -479,10 +475,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           const float a = exp2f(sc[i] - m[(i / 2) & 1]);
           const float b = exp2f(sc[i + 1] - m[(i / 2) & 1]);
           l[(i / 2) & 1] += a + b;
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
-          const float2 hf = __bfloat1622float2(hi);
-          p_hi[kk][j] = bf16x2_bits(hi);
-          p_lo[kk][j] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+          p_hi[kk][j] = Elem<T>::pack(a, b);
+          const float2 hf = Elem<T>::unpack(p_hi[kk][j]);
+          p_lo[kk][j] = Elem<T>::pack(a - hf.x, b - hf.y);
         }
       }
 #pragma unroll
@@ -498,8 +493,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int kk = 0; kk < kBk / 16; ++kk) {
         const uint64_t dv = smem_desc(sVs + kk * 16 * kRowBytes,
                                       kBk * kRowBytes, 8 * kRowBytes);
-        wgmma_rs<D>(acc, p_hi[kk], dv);
-        wgmma_rs<D>(acc, p_lo[kk], dv);
+        wgmma_rs<D, T>(acc, p_hi[kk], dv);
+        wgmma_rs<D, T>(acc, p_lo[kk], dv);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -508,7 +503,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (lane == 0) mbar_arrive(empty(s));
     }
 
-    // epilogue: the row sums over the quad, then o = acc / l in bf16,
+    // epilogue: the row sums over the quad, then o = acc / l in T,
     // written into this warpgroup's own rows of the Q tile (free after its
     // last QK^T) in the same 128-byte swizzle, and stored by TMA, which
     // clips rows past T and columns past hd
@@ -527,9 +522,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         // 16-byte chunk j % 8 of panel j / 8, swizzled by the row mod 8
         const uint32_t at = row + (j / 8) * kBq * kRowBytes +
                             (((j % 8) ^ (lane / 4)) << 4);
-        st_shared_u32(at, bf16x2_bits(__floats2bfloat162_rn(
-                              acc[4 * j + 2 * r] / l[r],
-                              acc[4 * j + 2 * r + 1] / l[r])));
+        st_shared_u32(at, Elem<T>::pack(acc[4 * j + 2 * r] / l[r],
+                                        acc[4 * j + 2 * r + 1] / l[r]));
       }
     }
     // the writes to the async proxy, then the warpgroup's 128 threads
@@ -573,11 +567,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (mats, rows, hd) bf16 at ptr as a 3-D tensor map of {64, box_rows, 1}
-// boxes with 128-byte swizzle; what lies past rows or hd reads as zeros
-// and is not written
-bool tensor_map(CUtensorMap* map, const void* ptr, int64_t mats,
-                int64_t rows, int64_t hd, int box_rows) {
+// (mats, rows, hd) 16-bit elements of type `type` at ptr as a 3-D tensor
+// map of {64, box_rows, 1} boxes with 128-byte swizzle; what lies past rows
+// or hd reads as zeros and is not written
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                int64_t mats, int64_t rows, int64_t hd, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
@@ -586,14 +580,14 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int64_t mats,
                                  (cuuint64_t)(rows * hd * 2)};
   const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map, type, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, int64_t bh, int heads, int group,
                          int kv_heads, int t_len, int s_len, int hd,
@@ -601,17 +595,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          cudaStream_t stream) {
   using L = Layout<D>;
   CUtensorMap qmap, kmap, vmap, omap;
-  if (!tensor_map(&qmap, q, bh, t_len, hd, kBq) ||
-      !tensor_map(&omap, o, bh, t_len, hd, kBq / 2))
+  constexpr CUtensorMapDataType type = Elem<T>::kMap;
+  if (!tensor_map(&qmap, type, q, bh, t_len, hd, kBq) ||
+      !tensor_map(&omap, type, o, bh, t_len, hd, kBq / 2))
     return cudaErrorInvalidValue;
   if (s_len > 0) {
-    if (!tensor_map(&kmap, k, bh / group, s_len, hd, L::kBk) ||
-        !tensor_map(&vmap, v, bh / group, s_len, hd, L::kBk))
+    if (!tensor_map(&kmap, type, k, bh / group, s_len, hd, L::kBk) ||
+        !tensor_map(&vmap, type, v, bh / group, s_len, hd, L::kBk))
       return cudaErrorInvalidValue;
   } else {
     kmap = vmap = qmap;  // no key tile is loaded
   }
-  auto kern = flash_wgmma_kernel<D>;
+  auto kern = flash_wgmma_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_limit);
   if (err != cudaSuccess) return err;
@@ -839,10 +834,24 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// the wgmma kernel for element type T at the head dim's bucket
+template <typename T>
+int launch_16bit(const void* q, const void* k, const void* v, void* o,
+                 int64_t bh, int heads, int group, int kv_heads, int t_len,
+                 int s_len, int hd, int causal, int64_t smem_limit,
+                 cudaStream_t s) {
+  switch (head_bucket(hd)) {
+    case 64: return (int)launch_wgmma<64, T>(q, k, v, o, bh, heads, group, kv_heads, t_len, s_len, hd, causal, smem_limit, s);
+    case 128: return (int)launch_wgmma<128, T>(q, k, v, o, bh, heads, group, kv_heads, t_len, s_len, hd, causal, smem_limit, s);
+    case 192: return (int)launch_wgmma<192, T>(q, k, v, o, bh, heads, group, kv_heads, t_len, s_len, hd, causal, smem_limit, s);
+    default: return (int)launch_wgmma<256, T>(q, k, v, o, bh, heads, group, kv_heads, t_len, s_len, hd, causal, smem_limit, s);
+  }
+}
+
 }  // namespace
 
 // Dynamic shared memory the kernel for this head dim and dtype needs
-// (dtype 0 = float32, 1 = bfloat16).
+// (dtype 0 = float32, 1 = bfloat16, 2 = float16).
 extern "C" int64_t flash_attention_smem_bytes(int64_t hd, int dtype) {
   if (dtype == 0) return (int64_t)fma_smem_bytes(hd);
   switch (head_bucket((int)hd)) {
@@ -854,7 +863,8 @@ extern "C" int64_t flash_attention_smem_bytes(int64_t hd, int dtype) {
 }
 
 // q, o: (B, H, T, hd), k, v: (B, Hkv, S, hd), contiguous and 16-byte
-// aligned, dtype 0 = float32, 1 = bfloat16; hd a multiple of 8 in [8, 256],
+// aligned, dtype 0 = float32, 1 = bfloat16, 2 = float16; hd a multiple of 8
+// in [8, 256],
 // H a multiple of Hkv.  Sets the kernel's dynamic shared memory limit to
 // smem_limit bytes, launches on `stream`, and returns cudaGetLastError()
 // of the launch.
@@ -866,7 +876,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    void* stream) {
   if (B * H == 0 || T == 0) return 0;
   if (hd < 8 || hd > kMaxHd || hd % 8 != 0 || Hkv <= 0 || H % Hkv != 0 ||
-      T > INT32_MAX || S > INT32_MAX || (dtype != 0 && dtype != 1))
+      T > INT32_MAX || S > INT32_MAX || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   // 16-byte vector loads and stores; TMA's global addresses
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
@@ -884,12 +894,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       default: return (int)launch_fma<4>(q, k, v, o, bh, (int)H, group, (int)Hkv, (int)T, (int)S, (int)hd, causal, smem_limit, s);
     }
   }
-  switch (head_bucket((int)hd)) {
-    case 64: return (int)launch_wgmma<64>(q, k, v, o, bh, (int)H, group, (int)Hkv, (int)T, (int)S, (int)hd, causal, smem_limit, s);
-    case 128: return (int)launch_wgmma<128>(q, k, v, o, bh, (int)H, group, (int)Hkv, (int)T, (int)S, (int)hd, causal, smem_limit, s);
-    case 192: return (int)launch_wgmma<192>(q, k, v, o, bh, (int)H, group, (int)Hkv, (int)T, (int)S, (int)hd, causal, smem_limit, s);
-    default: return (int)launch_wgmma<256>(q, k, v, o, bh, (int)H, group, (int)Hkv, (int)T, (int)S, (int)hd, causal, smem_limit, s);
-  }
+  return dtype == 1 ? launch_16bit<__nv_bfloat16>(q, k, v, o, bh, (int)H, group, (int)Hkv, (int)T, (int)S, (int)hd, causal, smem_limit, s)
+                    : launch_16bit<__half>(q, k, v, o, bh, (int)H, group, (int)Hkv, (int)T, (int)S, (int)hd, causal, smem_limit, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,15 +1,16 @@
 """The GQA flash-attention kernel: wrapper, plain version, counter, and a
-CPU replay of the bfloat16 kernel's arithmetic.
+CPU replay of the 16-bit kernel's arithmetic.
 
 The port's counterpart of ``repro.kernels.flash_attention.kernel``.
 :func:`flash_mha` runs one of two hand-written CUDA kernels for Hopper in
 ``csrc/flash_attention.cu`` (they replace ``flash_mha``; see its header
 for what bounds them and how the designs answer it), chosen by dtype:
 
-* bfloat16: ``flash_wgmma_kernel``, a producer warpgroup feeding Q, K and
-  V tiles through TMA into a ring of shared-memory stages and two consumer
-  warpgroups running both products on ``wgmma``, with P split into two
-  bfloat16 halves so that P V keeps float32's precision;
+* bfloat16 and float16: ``flash_wgmma_kernel``, a producer warpgroup
+  feeding Q, K and V tiles through TMA into a ring of shared-memory stages
+  and two consumer warpgroups running both products on ``wgmma``, with P
+  split into two halves of the input's type so that P V keeps float32's
+  precision;
 * float32: ``flash_fma_kernel``, float32 FMAs on the CUDA cores.
 
 Neither falls back to the other.  Both mask keys at or past ``S``
@@ -22,7 +23,7 @@ tensors lie on the CPU.  The wrapper allocates the output, launches on
 the current stream with the shared memory the kernel needs, raises if
 the launch reports an error (a launch refused for too much shared memory
 included), and adds one to ``flash_mha.launches`` for every launch.
-:func:`flash_mha_tiled_replay` replays the bfloat16 kernel's tiles,
+:func:`flash_mha_tiled_replay` replays the 16-bit kernel's tiles,
 masks and P split in torch on the CPU for the tests; no path calls it.
 """
 from __future__ import annotations
@@ -128,8 +129,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True) -> torch.Tensor:
-    """q: (B, H, T, hd); k/v: (B, Hkv, S, hd) with Hkv | H, all float32
-    or all bfloat16, contiguous (and 16-byte aligned on the card).
+    """q: (B, H, T, hd); k/v: (B, Hkv, S, hd) with Hkv | H, all float32,
+    all bfloat16 or all float16, contiguous (and 16-byte aligned on the
+    card).
     -> (B, H, T, hd) in q's dtype."""
     check_inputs(q, k, v)
     if not on_cuda(q, k, v):
@@ -143,12 +145,12 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_mha.launches = 0
 
-# the bfloat16 kernel's head-dim buckets, and its key tile at each
+# the 16-bit kernel's head-dim buckets, and its key tile at each
 HEAD_DIM_BUCKETS = (64, 128, 192, 256)
 
 
 def key_tile(hd: int) -> int:
-    """Keys a tile of the bfloat16 kernel at head dim ``hd``
+    """Keys a tile of the 16-bit kernel at head dim ``hd``
     (``Layout<D>::kBk`` in the source)."""
     return 128 if hd <= 128 else 64
 
@@ -157,17 +159,18 @@ def flash_mha_tiled_replay(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool,
                            block_q: int = 128, block_k: int = 128,
                            split_p: bool = True) -> torch.Tensor:
-    """The bfloat16 kernel's arithmetic, replayed in torch on the CPU.
+    """The 16-bit kernel's arithmetic, replayed in torch on the CPU.
 
-    q: (B, H, T, hd), k/v: (B, Hkv, S, hd), bfloat16.  Rows past T and S
-    and columns past hd up to the head-dim bucket are zeros, as TMA fills
-    them; each ``block_q`` query tile walks its key tiles in order, skipping
-    those wholly past the causal diagonal; scores are float32 products,
-    scaled into base 2 (``scale * log2(e)``), masked to -1e30 at keys past
-    S or past the query (causal); m, l and the accumulator are float32.
-    P is split into bfloat16 halves P_hi + P_lo multiplied by V one after
-    the other (one bfloat16 P when ``split_p`` is False).  Test-only: the
-    kernel's order of float32 sums inside a product is not replayed.
+    q: (B, H, T, hd), k/v: (B, Hkv, S, hd), bfloat16 or float16.  Rows
+    past T and S and columns past hd up to the head-dim bucket are zeros,
+    as TMA fills them; each ``block_q`` query tile walks its key tiles in
+    order, skipping those wholly past the causal diagonal; scores are
+    float32 products, scaled into base 2 (``scale * log2(e)``), masked to
+    -1e30 at keys past S or past the query (causal); m, l and the
+    accumulator are float32.  P is split into halves P_hi + P_lo of q's
+    type, multiplied by V one after the other (one P of q's type when
+    ``split_p`` is False).  Test-only: the kernel's order of float32 sums
+    inside a product is not replayed.
     """
     b, h, t, hd = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -208,9 +211,9 @@ def flash_mha_tiled_replay(q: torch.Tensor, k: torch.Tensor,
             corr = torch.exp2(m - m_new)
             p = torch.exp2(x - m_new)
             l = l * corr + p.sum(-1, keepdim=True)
-            hi = p.bfloat16().float()
+            hi = p.to(q.dtype).float()
             if split_p:
-                lo = (p - hi).bfloat16().float()
+                lo = (p - hi).to(q.dtype).float()
                 acc = acc * corr + hi @ vb + lo @ vb
             else:
                 acc = acc * corr + hi @ vb

@@ -4,8 +4,8 @@
 //      (kernel.py:31, body _rmsnorm_kernel :22).  For every row r of
 //      x (rows, d):
 //          y[r] = (x[r] * rsqrt(mean(x[r]^2) + eps)) * w
-//      in float32, cast back to x's type (float32 or bfloat16, rounded to
-//      nearest even).  w is float32 (the wrapper casts it, as the reference
+//      in float32, cast back to x's type (float32, bfloat16 or float16,
+//      rounded to nearest even).  w is float32 (the wrapper casts it, as the reference
 //      does with w.astype(f32)).
 //
 // What bounds it on an H100: bytes.  It reads x once and writes y once,
@@ -16,7 +16,7 @@
 //
 // The design: one block per row (a grid-stride loop over rows).  Each
 // thread loads its share of the row with 16-byte vector loads (8 bfloat16
-// or 4 float32) into registers, VPT vectors a thread, sums the squares in
+// or float16, or 4 float32) into registers, VPT vectors a thread, sums the squares in
 // float32, and the block reduces the sum with warp shuffles and one word of
 // shared memory per warp.  The same registers are then scaled and stored,
 // so x is read from device memory once, where the TPU kernel kept a block
@@ -24,7 +24,7 @@
 // padded to a multiple of the block; a block here owns one row, so any
 // row count is taken and nothing is padded.  Rows wider than the register
 // stage (8 vectors for each of 512 threads: 16,384 float32 or 32,768
-// bfloat16 values) read x twice, the second time from L2, in blocks of
+// 16-bit values) read x twice, the second time from L2, in blocks of
 // 1024 threads.  A row whose width or base is not a whole number
 // of 16-byte vectors takes scalar loads.
 //
@@ -32,6 +32,7 @@
 // (0 = cudaSuccess).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,6 +53,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -60,6 +62,10 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // Sum of v over the block; every thread gets the total.  part holds one
@@ -187,20 +193,21 @@ cudaError_t launch(const void* x, const float* w, void* y, int64_t rows,
 
 }  // namespace
 
-// x, y: (rows, d) contiguous, dtype 0 = float32, 1 = bfloat16; w: float32
-// (d,).  Launches on `stream`; returns cudaGetLastError() of the launch.
+// x, y: (rows, d) contiguous, dtype 0 = float32, 1 = bfloat16, 2 =
+// float16; w: float32 (d,).  Launches on `stream`; returns cudaGetLastError() of the launch.
 extern "C" int fused_rmsnorm_rows(const void* x, const void* w, void* y,
                                   int64_t rows, int64_t d, float eps,
                                   int dtype, void* stream) {
   if (rows <= 0 || d <= 0) return 0;
-  if (d > INT32_MAX || (dtype != 0 && dtype != 1))
+  if (d > INT32_MAX || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
-  const cudaError_t err =
-      dtype == 0 ? launch<float>(x, wf, y, rows, (int)d, eps, s)
-                 : launch<__nv_bfloat16>(x, wf, y, rows, (int)d, eps, s);
-  return (int)err;
+  switch (dtype) {
+    case 0: return (int)launch<float>(x, wf, y, rows, (int)d, eps, s);
+    case 1: return (int)launch<__nv_bfloat16>(x, wf, y, rows, (int)d, eps, s);
+    default: return (int)launch<__half>(x, wf, y, rows, (int)d, eps, s);
+  }
 }
 
 extern "C" const char* fused_rmsnorm_error_string(int code) {

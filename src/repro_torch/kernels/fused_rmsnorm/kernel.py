@@ -51,8 +51,8 @@ def rmsnorm_rows_plain(x: torch.Tensor, w: torch.Tensor, *,
 
 def rmsnorm_rows(x: torch.Tensor, w: torch.Tensor, *,
                  eps: float = 1e-5) -> torch.Tensor:
-    """x: (R, d) float32 or bfloat16, contiguous; w: (d,) of any float
-    type.  Returns ``x · rsqrt(mean(x²) + eps) · w`` per row, in x's
+    """x: (R, d) float32, bfloat16 or float16, contiguous; w: (d,) of any
+    float type.  Returns ``x · rsqrt(mean(x²) + eps) · w`` per row, in x's
     dtype."""
     check_dtype("x", x)
     if x.dim() != 2:

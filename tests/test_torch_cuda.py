@@ -6,6 +6,7 @@ with only the port's dependencies::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -122,6 +123,92 @@ def test_kernels_reject_out_of_range_ids_on_the_card(cuda):
         # unchecked, the kernel still touches nothing outside L
         assert call(False).tolist() == skipped
     torch.cuda.synchronize()
+
+
+# graphs on which the sweep kernels' combining is pushed: every edge meets
+# one hub (a star with its hub at a random id, and one whose hub is vertex
+# 0), each edge reads what the one before lowered, and a power-law graph
+SWEEP_GRAPHS = {
+    "star": lambda d: gen.star(65536, seed=1, device=d),
+    "one_hub": lambda d: gen.Graph.from_numpy(
+        np.zeros(65535, np.int64), np.arange(1, 65536), 65536, device=d),
+    "path_unshuffled": lambda d: gen.path(65536, shuffle_ids=False,
+                                          device=d),
+    "rmat": lambda d: gen.rmat(14, 16, seed=7, device=d),
+}
+
+
+def _sliced(t, offset):
+    """``t`` from ``offset`` on: a view whose base is ``offset`` items
+    past the allocation's (16-byte aligned) start."""
+    return t[offset:]
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 1), (2, 0)])
+@pytest.mark.parametrize("graph", sorted(SWEEP_GRAPHS))
+def test_sweep_kernels_on_hubs_and_slices(cuda, graph, offsets):
+    """fused_relax and scatter_min on hub graphs and on slices of the
+    edge list whose base is not on a 16-byte boundary, at edge limits 0,
+    1, 31, 33 and m // 2: equal to their plain versions, with the
+    replays' counts of updates before the test and of hot slots."""
+    g = SWEEP_GRAPHS[graph](cuda)
+    src, dst = _sliced(g.src, offsets[0]), _sliced(g.dst, offsets[1])
+    m = min(src.shape[0], dst.shape[0])
+    src, dst = src[:m], dst[:m]
+    for L in _states(g, count=2):
+        for limit in (None, 0, 1, 31, 33, m // 2):
+            got, counts = blocked.fused_relax_sweep(L, src, dst, limit,
+                                                    counts=True)
+            assert torch.equal(got, blocked.fused_relax_plain(L, src, dst,
+                                                              limit))
+            _, want = blocked.fused_relax_combined_replay(L, src, dst, limit)
+            assert {key: counts[key] for key in want} == want
+        t, v = minmap.mm_update_stream(L, g.src, g.dst, 1)
+        t, v = _sliced(t, offsets[0]), _sliced(v, offsets[1])
+        k = min(t.shape[0], v.shape[0])
+        valid = _sliced(torch.arange(t.shape[0] + 4, device=cuda) % 3 > 0,
+                        offsets[1])[:k]
+        for vd in (None, valid):
+            got, counts = blocked.scatter_min_sweep(L, t[:k], v[:k], vd,
+                                                    counts=True)
+            assert torch.equal(got, blocked.scatter_min_plain(L, t[:k], v[:k],
+                                                              vd))
+            _, want = blocked.scatter_min_combined_replay(L, t[:k], v[:k],
+                                                          vd)
+            assert {key: counts[key] for key in want} == want
+
+
+@pytest.mark.parametrize("graph", ["star", "rmat"])
+def test_sweep_kernels_test_before_the_red(cuda, graph):
+    """The test of the output label and the combine only drop reds: the
+    labels are the plain version's, and the updates left after the test
+    never exceed those before it, nor the reds issued those left.  On the
+    star's first sweep the hub's slots are hot."""
+    g = SWEEP_GRAPHS[graph](cuda)
+    for i, L in enumerate(_states(g, count=2)):
+        got, counts = blocked.fused_relax_sweep(L, g.src, g.dst,
+                                                counts=True)
+        assert torch.equal(got, blocked.fused_relax_plain(L, g.src, g.dst))
+        t, v = minmap.mm_update_stream(L, g.src, g.dst, 2)
+        got2, counts2 = blocked.scatter_min_sweep(L, t, v, counts=True)
+        assert torch.equal(got2, blocked.scatter_min_plain(L, t, v))
+        for c in (counts, counts2):
+            assert (c["reds_to_memory"] <= c["reds_after_test"]
+                    <= c["reds_before_test"])
+        if graph == "star" and i == 0:
+            assert counts2["hot_slots"] > 0
+
+
+def test_sweep_counter_only_when_asked(cuda):
+    """Without ``counts`` the sweeps return the labels alone (no counter
+    is allocated); with it, the four counts of ``blocked.COUNTERS``."""
+    g = SWEEP_GRAPHS["rmat"](cuda)
+    L = _states(g, count=0)[0]
+    assert isinstance(blocked.fused_relax_sweep(L, g.src, g.dst),
+                      torch.Tensor)
+    _, counts = blocked.fused_relax_sweep(L, g.src, g.dst, counts=True)
+    assert tuple(counts) == blocked.COUNTERS
+    assert counts["reds_before_test"] == g.n_edges
 
 
 @pytest.mark.parametrize("graph", ["rmat", "grid", "path"])
@@ -295,9 +382,14 @@ RMS_CARD_CASES = [
     (2, 40000, torch.float32, torch.float32),
     (9, 100, torch.bfloat16, torch.float32),
     (9, 101, torch.float32, torch.float32),
+    (33, 768, torch.float16, torch.float16),
+    (300, 5120, torch.float16, torch.float32),
+    (3, 65536, torch.float16, torch.float16),
+    (9, 101, torch.float16, torch.float32),
 ]
-# bfloat16 rounds the output: one unit in its last place
-RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# bfloat16 and float16 round the output: one unit in their last place
+# (2**-7 and 2**-10 of the value)
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
 
 @pytest.mark.parametrize("rows,d,x_dtype,w_dtype", RMS_CARD_CASES)
@@ -358,12 +450,20 @@ FLASH_CARD_CASES = [
     (1, 2, 2, 129, 129, 192, True, torch.bfloat16),
     (2, 4, 4, 127, 127, 256, False, torch.bfloat16),
     (3, 2, 2, 1, 1, 8, True, torch.bfloat16),
+    # the float16 instances: every head-dim bucket, ragged, causal T > S
+    (1, 8, 1, 130, 130, 32, True, torch.float16),
+    (1, 4, 2, 100, 260, 128, True, torch.float16),
+    (1, 4, 2, 129, 127, 24, False, torch.float16),
+    (1, 2, 2, 129, 129, 192, True, torch.float16),
+    (2, 4, 4, 127, 127, 256, False, torch.float16),
+    (1, 2, 1, 129, 128, 64, True, torch.float16),
 ]
 # (atol, rtol, rms_rel), as chip_smoke.py holds the kernel at nemo's
-# shapes: one unit in bfloat16's last place, and rms(got - want) against
-# rms(want)
+# shapes: one unit in bfloat16's or float16's last place, and rms(got -
+# want) against rms(want)
 FLASH_TOL = {torch.float32: (1e-5, 1e-4, 1e-5),
-             torch.bfloat16: (4e-3, 1e-2, 5e-4)}
+             torch.bfloat16: (4e-3, 1e-2, 5e-4),
+             torch.float16: (1e-3, 2e-3, 1e-4)}
 
 
 @pytest.mark.parametrize("b,h,hkv,t,s,hd,causal,dtype", FLASH_CARD_CASES)
@@ -412,12 +512,23 @@ def test_flash_rejects_bad_inputs_on_the_card(cuda):
             (lambda: flash_mha(q.cpu(), k, v), ValueError),
             (lambda: flash_mha(q.double(), k.double(), v.double()),
              TypeError),
-            (lambda: flash_mha(q.half(), k.half(), v.half()), TypeError),
+            (lambda: flash_mha(q.half(), k, v), TypeError),
             (lambda: flash_mha(q.transpose(2, 3).contiguous()
                                .transpose(2, 3), k, v), ValueError)):
         with pytest.raises(error):
             call()
     assert flash_mha.launches == before
+    # float16 is taken (it raised TypeError before it had a kernel
+    # instance): one launch, float16 out, the plain version's result
+    gen_ = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(t.shape, device=cuda, generator=gen_).half()
+               for t in (q, k, v))
+    got = flash_mha(q, k, v)
+    assert flash_mha.launches == before + 1
+    assert got.dtype == torch.float16
+    atol, rtol, _ = FLASH_TOL[torch.float16]
+    torch.testing.assert_close(got.float(), flash_mha_plain(q, k, v).float(),
+                               atol=atol, rtol=rtol)
 
 
 def test_flash_refuses_misaligned_views_on_the_card(cuda):
@@ -446,10 +557,12 @@ def test_flash_refuses_misaligned_views_on_the_card(cuda):
 # staging (2 * 128 * 68 + 64 * 128 + 64 * 68) * 4; the bfloat16 kernel's Q
 # tile (32 KB) and two stages of K and V tiles (128 KB), its 7 mbarriers
 # and 1 KB to align the ring to the 128-byte swizzle's 1024-byte pattern
-FLASH_SMEM_AT_HD128 = {torch.float32: 119_808, torch.bfloat16: 164_920}
+FLASH_SMEM_AT_HD128 = {torch.float32: 119_808, torch.bfloat16: 164_920,
+                       torch.float16: 164_920}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_launch_refused_for_shared_memory_raises(cuda, dtype):
     """Held to the 48 KB a launch gets without asking, or to one byte less
     than its need, the launch is refused, and the wrapper raises instead of

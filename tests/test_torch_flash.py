@@ -212,3 +212,68 @@ def test_tensor_from_numpy_rejects_other_inputs():
         tensor_from_numpy(torch.zeros(3), device="cpu")
     with pytest.raises(ValueError):
         tensor_from_numpy(np.zeros(3, np.float32), "float16", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# float16: the kernel takes it, computes in float32 and returns float16, as
+# the reference does (ROADMAP Queue C)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's FLASH_TOL[torch.float16]: (atol, rtol, rms_rel)
+F16_TOL = (1e-3, 2e-3, 1e-4)
+
+
+def _close_f16(port, ref):
+    """Every element within atol + rtol |ref| and rms(port - ref) within
+    rms_rel rms(ref), in float32: both sides compute in float32 and round
+    once to float16 (one unit in the last place is 2**-10 |ref| at most,
+    inside rtol |ref|)."""
+    atol, rtol, rms_rel = F16_TOL
+    got = port.float().numpy()
+    want = np.asarray(ref, np.float32)
+    diff = np.abs(got - want)
+    assert (diff <= atol + rtol * np.abs(want)).all(), diff.max()
+    assert np.sqrt(np.mean(diff ** 2)) <= rms_rel * np.sqrt(
+        np.mean(want ** 2))
+
+
+def _f16_inputs(b, h, hkv, t, s, hd, seed=0):
+    """(q, k, v) as jax and torch (CPU) float16 arrays with the same bits
+    (numpy rounds to float16 once for both)."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape, dtype=np.float32).astype(np.float16)
+              for shape in ((b, h, t, hd), (b, hkv, s, hd), (b, hkv, s, hd))]
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.from_numpy(a) for a in arrays])
+
+
+def test_float16_queue_c_input_matches_the_reference():
+    """q = k = v = ones((1, 1, 1, 8)) in float16 with blocks of 1: the
+    reference returns ones in float16; so does the default entry point,
+    which raised TypeError before float16 was taken."""
+    ones = np.ones((1, 1, 1, 8), np.float16)
+    want = ref_flash(*[jnp.asarray(ones)] * 3, block_q=1, block_k=1)
+    got = flash_attention(*[torch.from_numpy(ones)] * 3, block_q=1,
+                          block_k=1)
+    assert got.dtype == torch.float16 and want.dtype == jnp.float16
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("b,h,hkv,t,s,hd,causal,blocks", [
+    (1, 8, 2, 130, 130, 32, True, (64, 64)),      # ragged
+    (1, 2, 2, 512, 512, 128, True, (128, 128)),
+    (2, 4, 4, 128, 128, 64, False, (64, 64)),
+    (1, 8, 1, 192, 192, 32, True, (64, 64)),      # MQA
+    (1, 2, 2, 64, 64, 80, True, (64, 64)),        # zamba2's head dim
+])
+def test_float16_matches_the_reference(b, h, hkv, t, s, hd, causal, blocks):
+    (jq, jk, jv), (q, k, v) = _f16_inputs(b, h, hkv, t, s, hd, seed=6)
+    want = ref_flash(jq, jk, jv, causal=causal, block_q=blocks[0],
+                     block_k=blocks[1])
+    launches = flash_mha.launches
+    got = flash_attention(q, k, v, causal=causal, block_q=blocks[0],
+                          block_k=blocks[1])
+    assert got.dtype == torch.float16 and got.shape == (b, h, t, hd)
+    _close_f16(got, want)
+    _close_f16(got, ref_mha(jq, jk, jv, causal=causal))
+    assert flash_mha.launches == launches

@@ -116,3 +116,54 @@ def test_output_rows_have_unit_rms():
 def test_rmsnorm_rejects_what_the_kernel_does_not_take(call, error):
     with pytest.raises(error):
         call()
+
+
+# ---------------------------------------------------------------------------
+# float16: the kernel takes it, computes in float32 and returns float16, as
+# the reference does (ROADMAP Queue C)
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's RMS_TOL[torch.float16]: (atol, rtol, rms_rel)
+F16_TOL = (1e-3, 2e-3, 1e-4)
+
+
+def _close_f16(port, ref):
+    """Every element within atol + rtol |ref| and rms(port - ref) within
+    rms_rel rms(ref), in float32: both sides compute in float32 and round
+    once to float16, so they differ by at most one unit in the last place
+    (2**-10 |ref| < rtol |ref|) where the two float32 results straddle a
+    rounding boundary."""
+    atol, rtol, rms_rel = F16_TOL
+    got = port.float().numpy()
+    want = np.asarray(ref, np.float32)
+    diff = np.abs(got - want)
+    assert (diff <= atol + rtol * np.abs(want)).all(), diff.max()
+    assert np.sqrt(np.mean(diff ** 2)) <= rms_rel * np.sqrt(
+        np.mean(want ** 2))
+
+
+def test_float16_queue_c_input_matches_the_reference():
+    """x = [[1, ..., 8]] in float16, w = ones(8) in float32: the reference
+    returns float16 [0.198 0.396 ... 1.584]; so does the default entry
+    point, which raised TypeError before float16 was taken."""
+    x = np.arange(1, 9, dtype=np.float16)[None]
+    w = np.ones(8, np.float32)
+    want = ref_rmsnorm(jnp.asarray(x), jnp.asarray(w))
+    got = fused_rmsnorm(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.float16 and want.dtype == jnp.float16
+    _close_f16(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("w_dtype", ["float16", "float32"])
+@pytest.mark.parametrize("shape", [(64, 512), (33, 768), (2, 5, 256),
+                                   (1, 8192)])
+def test_float16_matches_the_reference(shape, w_dtype):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(shape, dtype=np.float32).astype(np.float16)
+    w = rng.standard_normal(shape[-1:], dtype=np.float32).astype(w_dtype)
+    launches = rmsnorm_rows.launches
+    got = fused_rmsnorm(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.float16 and got.shape == shape
+    _close_f16(got, ref_rmsnorm(jnp.asarray(x), jnp.asarray(w)))
+    assert rmsnorm_rows.launches == launches
