@@ -5,19 +5,32 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 with ``nvcc`` (sm_90a, one ``nvcc`` per library, started together),
 holds each kernel against its plain PyTorch version at the shapes its
 path gives it, then drives the port's paths at the paper's sizes and
-checks their labels against the ``torch`` backend, against the same
+checks their labels against the ``torch`` backend (plain torch on the
+card, sweeps and loop alike: it launches no kernel), against the same
 solve on CPU tensors where the kernel's order of updates matters, and
 against scipy's connected components:
 
 * the main path, ``repro_torch.solve(g)`` (Contour C-2 on the ``cuda``
-  kernels), and C-11mm, whose order-1 sweeps run ``scatter_min``; before
-  it, ``fused_relax`` and ``scatter_min`` are held against their plain
-  versions on hub graphs, slices and edge limits, their counts (updates
-  before the test of the output label, hot slots) against the plain
-  replays, their SASS for the warp combine (``contour_hopper``), and
-  timed in four label states of each main-path graph;
+  kernels, its fixpoint loop on the card: ``converged_early`` does the
+  loop's step, ``pointer_jump`` the jump rounds, and the host reads the
+  loop's state once per ``converged.CHUNK`` iterations), and C-11mm,
+  whose order-1 sweeps run ``scatter_min``; before it, ``fused_relax``
+  and ``scatter_min`` are held against their plain versions on hub
+  graphs, slices and edge limits, their counts (updates before the test
+  of the output label, hot slots) against the plain replays, their SASS
+  for the warp combine (``contour_hopper``), and timed in four label
+  states of each main-path graph; after it, ``converged_early``,
+  ``labels_unchanged`` and ``pointer_jump`` are held against their plain
+  versions in the same states and at the solve's fixed point, and the
+  warm solve is timed at several chunk sizes and traced with
+  ``torch.profiler`` for the card's idle share;
 * the asynchronous path, ``solve(g, backend="cuda_async")`` on the
   in-order sweep kernel ``mm2``;
+* the baseline families, ``solve(g, algorithm=a)`` for FastSV and label
+  propagation (their hookings on ``scatter_min``, their no-change test on
+  ``labels_unchanged``) and Rem's union-find (on the host), against scipy
+  and against the same solves on CPU tensors at the check scale, and a
+  FastSV iteration timed with and without the freeze of its state;
 * the frontier path, ``solve(g, sampling=2, compact_every=2,
   sampling_strategy=s)`` for every sampling strategy, staged;
 * the float kernels' entry points, ``fused_rmsnorm(x, w)`` and
@@ -51,6 +64,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -64,10 +78,12 @@ import torch  # noqa: E402
 
 from repro_torch import Graph, solve  # noqa: E402
 from repro_torch.connectivity import SAMPLING_STRATEGIES, minmap  # noqa: E402
+from repro_torch.connectivity import fastsv  # noqa: E402
 from repro_torch.connectivity import frontier as fr  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.contour_mm import blocked, kernel, ops  # noqa: E402
+from repro_torch.kernels.contour_mm import converged as cv  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, mha_ref)
 from repro_torch.kernels.flash_attention import \
@@ -82,6 +98,9 @@ DEVICE = "cuda"
 RMAT_EDGE_FACTOR = 16
 # calls per CUDA-event or host-clock timing
 REPS = 20
+# cycles the card spins before a timed call (about 0.1 ms at 1.98 GHz):
+# more than the host takes to enqueue one call
+HOLD_CYCLES = 200_000
 # launches per timing of the in-order sweep kernel mm2: one launch walks
 # every edge on one thread and takes seconds at the async path's sizes
 ASYNC_REPS = 3
@@ -89,6 +108,9 @@ ASYNC_REPS = 3
 # fires, checked on the small graphs named in MM2_TINY_ON
 MM2_TINY = [(1, 1, 1), (3, 2, 1), (4, 4, 2), (7, 5, 8)]
 MM2_TINY_ON = ("path_unshuffled(65536)", "star(65536)")
+# the chunk sizes (iterations between two reads of the loop's state) at
+# which the warm C-2 solve is timed
+CHUNKS = (1, 2, 3, 4, 6, 8, 16)
 # the frontier schedule the repo's drivers run (benchmarks/connectivity.py,
 # examples/quickstart.py)
 FRONTIER = {"sampling": 2, "compact_every": 2}
@@ -132,6 +154,16 @@ REPLACES = {
     "scatter_min": "src/repro/kernels/contour_mm/blocked.py:92 "
                    "(binned_scatter_min_pallas)",
     "mm2": "src/repro/kernels/contour_mm/kernel.py:53 (mm2_pallas)",
+    # no Pallas counterpart: XLA inside the reference's lax.while_loop
+    # (src/repro/connectivity/contour.py:244)
+    "converged_early": "src/repro/connectivity/minmap.py:88 "
+                       "(converged_early; no Pallas counterpart, XLA-fused "
+                       "in the reference's loop)",
+    "labels_unchanged": "src/repro/connectivity/contour.py:238 "
+                        "(jnp.all(L_new == L), also fastsv.py:61 and "
+                        "lp.py:42; no Pallas counterpart, XLA-fused)",
+    "pointer_jump": "src/repro/connectivity/minmap.py:75 (pointer_jump; no "
+                    "Pallas counterpart, XLA-fused in the reference's loop)",
     "rmsnorm_rows": "src/repro/kernels/fused_rmsnorm/kernel.py:31 "
                     "(rmsnorm_rows)",
     "flash_mha": "src/repro/kernels/flash_attention/kernel.py:77 "
@@ -139,16 +171,20 @@ REPLACES = {
 }
 SOURCE = "src/repro_torch/kernels/contour_mm/csrc/contour_mm.cu"
 MM2_SOURCE = "src/repro_torch/kernels/contour_mm/csrc/mm2.cu"
+CONVERGED_SOURCE = "src/repro_torch/kernels/contour_mm/csrc/converged.cu"
 RMSNORM_SOURCE = "src/repro_torch/kernels/fused_rmsnorm/csrc/rmsnorm.cu"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
 # (library, its module) for every kernel library of the port
 LIBRARIES = ((blocked.LIBRARY, blocked), (kernel.LIBRARY, kernel),
-             (rms_kernel.LIBRARY, rms_kernel),
+             (cv.LIBRARY, cv), (rms_kernel.LIBRARY, rms_kernel),
              (flash_kernel.LIBRARY, flash_kernel))
 # every kernel wrapper of the port, by name; each counts its launches
 WRAPPERS = {"fused_relax": blocked.fused_relax,
             "scatter_min": blocked.scatter_min, "mm2": kernel.mm2,
+            "converged_early": cv.converged_early,
+            "labels_unchanged": cv.labels_unchanged,
+            "pointer_jump": cv.pointer_jump,
             "rmsnorm_rows": rms_kernel.rmsnorm_rows,
             "flash_mha": flash_kernel.flash_mha}
 KERNEL_NAMES = tuple(WRAPPERS)
@@ -171,10 +207,15 @@ def device_line() -> str:
 
 
 def time_ms(fn) -> float:
-    """Mean device time of ``fn()`` over ``REPS`` calls (CUDA events)."""
+    """Mean device time of ``fn()`` over ``REPS`` calls (CUDA events).
+
+    The card first spins for ``HOLD_CYCLES`` so that the host enqueues the
+    calls ahead of it: a kernel shorter than its call's host time is then
+    timed on the card alone, not at the host's pace."""
     for _ in range(2):
         fn()
     sync()
+    torch.cuda._sleep(HOLD_CYCLES * REPS)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -183,6 +224,44 @@ def time_ms(fn) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / REPS
+
+
+def time_each_ms(fn, setup=None) -> float:
+    """Mean device time of ``fn()`` alone over ``REPS`` calls, each between
+    its own pair of CUDA events, with ``setup()`` (untimed) before each;
+    the card spins before each setup, as in :func:`time_ms`, so that the
+    host has enqueued the call when its first event is reached."""
+    for _ in range(2):
+        if setup is not None:
+            setup()
+        fn()
+    sync()
+    pairs = []
+    for _ in range(REPS):
+        torch.cuda._sleep(HOLD_CYCLES)
+        if setup is not None:
+            setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    sync()
+    return sum(s.elapsed_time(e) for s, e in pairs) / REPS
+
+
+_flush = []
+
+
+def flush_l2() -> None:
+    """Write a buffer of four times the card's L2, so that the next call
+    reads its inputs from HBM, as it does inside a solve, where the sweep
+    between two calls streams the edges through L2."""
+    if not _flush:
+        l2 = torch.cuda.get_device_properties(0).L2_cache_size
+        _flush.append(torch.empty(l2, dtype=torch.int32, device=DEVICE))
+    _flush[0].fill_(0)
 
 
 def host_ms(fn) -> float:
@@ -230,19 +309,46 @@ def reset_launch_counts() -> None:
 def host_syncs(fn) -> dict:
     """Synchronizing operations in one call of ``fn``, as torch's sync
     debug mode flags them (the device-to-host reads of a solve): the
-    total, and the count at each source line that made one."""
+    total, and the count at each source line that made one, named by the
+    innermost frame of the port's package (or of this script) on the
+    stack at the time."""
+    sites = Counter()
+    ours = (str(ROOT / "src" / "repro_torch"), str(ROOT / "chip_smoke.py"))
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        for frame in reversed(traceback.extract_stack()[:-1]):
+            if frame.filename.startswith(ours):
+                filename, lineno = frame.filename, frame.lineno
+                break
+        sites[f"{Path(filename).name}:{lineno}"] += 1
+
     sync()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
             fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     sync()
-    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                    if "synchroniz" in str(w.message))
     return {"total": sum(sites.values()), "sites": dict(sites)}
+
+
+def plain_solve(g, **options):
+    """``solve(g, backend="torch", **options)``, the plain reference: it
+    must launch no kernel (the counts are read around it and set to 0
+    again after)."""
+    reset_launch_counts()
+    res = solve(g, backend="torch", **options)
+    launched = {k: v for k, v in launch_counts().items() if v}
+    reset_launch_counts()
+    if launched:
+        raise AssertionError(f"the torch backend launched kernels: "
+                             f"{launched}")
+    return res
 
 
 def cpu_copy(g) -> Graph:
@@ -634,48 +740,129 @@ def phase_mm2(small, full) -> dict:
 
 
 def iteration_parts(g, L) -> dict:
-    """Device ms of each step of one C-2 iteration at labels ``L``."""
-    return {
+    """Device ms of each step of one C-2 iteration at labels ``L``, as the
+    loop enqueues them: the sweep, the jump round and the test that does
+    the loop's step (a fresh state before each, untimed); the plain test
+    beside it; and a whole iteration enqueued past the fixed point (the
+    done word set: the sweep returns, the jump copies, the test skips).
+    The jump round is timed with L2 flushed before each call, as the
+    sweep before it leaves L2 in the loop."""
+    state = cv.loop_state(g.device)
+    done = cv.done_word(state)
+
+    def iteration():
+        L1 = blocked.fused_relax(L, g.src, g.dst, check=False, done=done)
+        L1 = cv.pointer_jump(L1, done)
+        cv.converged_early(L1, g.src, g.dst, state=state)
+
+    out = {
         "fused_relax_ms": time_ms(
             lambda: blocked.fused_relax(L, g.src, g.dst, check=False)),
-        "pointer_jump_ms": time_ms(lambda: minmap.pointer_jump(L)),
-        "converged_early_ms": time_ms(
-            lambda: minmap.converged_early(L, g.src, g.dst)),
+        "pointer_jump_ms": time_each_ms(lambda: cv.pointer_jump(L),
+                                        setup=flush_l2),
+        "converged_early_ms": time_each_ms(
+            lambda: cv.converged_early(L, g.src, g.dst, state=state),
+            setup=state.zero_),
+        "converged_early_plain_ms": time_ms(
+            lambda: cv.converged_early_plain(L, g.src, g.dst)),
     }
+    state.fill_(0)
+    done.fill_(1)
+    out["frozen_iteration_ms"] = time_ms(iteration)
+    return out
+
+
+def replay(g, iters: int, labels=None):
+    """The dense C-2 loop's device work for ``iters`` iterations with no
+    host read: per iteration the sweep, the jump round and the test with
+    the loop's step, then the final jump."""
+    L = (torch.arange(g.n_vertices, dtype=torch.int32, device=g.device)
+         if labels is None else labels)
+    state = cv.loop_state(g.device)
+    done = cv.done_word(state)
+    for _ in range(iters):
+        L = ops.mm_relax_backend(L, g.src, g.dst, order=2, backend="cuda",
+                                 done=done)
+        L = cv.pointer_jump(L, done)
+        cv.converged_early(L, g.src, g.dst, state=state)
+    return cv.pointer_jump(L)
 
 
 def loop_cost(g, res) -> dict:
     """A warm C-2 solve against the same device work with no host read.
 
-    The replay enqueues the solve's iterations (the sweep, one
-    pointer-jump round, and ``converged_early``, whose flag is computed
-    but never read) and the final jump, back to back.  The difference in
-    host-clock time is what the loop's per-iteration flag reads and the
-    facade's host work add.  The replay's device time bounds the solve's
-    busy time from above, so ``1 - replay_device_ms / solve_ms`` bounds
-    the device's idle share inside the solve from below.
+    :func:`replay` enqueues the solve's iterations back to back.  The
+    difference in host-clock time is what the loop's reads of its state
+    (one a chunk) and the facade's host work add, beside the iterations
+    enqueued past the fixed point.  The replay's device time bounds the
+    solve's busy time from above, so ``1 - replay_device_ms / solve_ms``
+    bounds the device's idle share inside the solve from below.
     """
     iters = int(res.iterations)
-
-    def replay():
-        L = torch.arange(g.n_vertices, dtype=torch.int32, device=g.device)
-        for _ in range(iters):
-            L = ops.mm_relax_backend(L, g.src, g.dst, order=2,
-                                     backend="cuda")
-            L = minmap.pointer_jump(L, rounds=1)
-            minmap.converged_early(L, g.src, g.dst)
-        return minmap.pointer_jump(L, rounds=1)
-
-    if not torch.equal(replay(), res.labels):
+    if not torch.equal(replay(g, iters), res.labels):
         raise AssertionError("the replay does not repeat the solve")
     solve_ms = host_ms(lambda: solve(g))
-    replay_ms = host_ms(replay)
-    replay_device_ms = time_ms(replay)
-    return {"iterations": iters, "solve_ms": solve_ms,
+    replay_ms = host_ms(lambda: replay(g, iters))
+    replay_device_ms = time_ms(lambda: replay(g, iters))
+    return {"iterations": iters, "chunk": cv.CHUNK, "solve_ms": solve_ms,
             "replay_ms": replay_ms, "replay_device_ms": replay_device_ms,
             "host_reads_ms": solve_ms - replay_ms,
             "host_reads_ms_per_iteration": (solve_ms - replay_ms) / iters,
             "idle_share_at_least": 1 - replay_device_ms / solve_ms}
+
+
+def chunk_sweep(g, iterations: int) -> dict:
+    """The warm C-2 solve at each chunk size k (``converged.CHUNK``):
+    host-clock ms (mean of ``REPS``), host syncs, and the reads of the
+    loop's state, which must be ceil(iterations / k)."""
+    shipped = cv.CHUNK
+    out = {}
+    try:
+        for k in CHUNKS:
+            cv.CHUNK = k
+            syncs = host_syncs(lambda: solve(g))
+            reads = sum(count for site, count in syncs["sites"].items()
+                        if site.startswith("converged.py"))
+            if reads != -(-iterations // k):
+                raise AssertionError(f"chunk {k}: {reads} reads of the "
+                                     f"loop's state for {iterations} "
+                                     "iterations")
+            out[str(k)] = {"warm_ms": host_ms(lambda: solve(g)),
+                           "host_syncs": syncs["total"], "loop_reads": reads}
+    finally:
+        cv.CHUNK = shipped
+    return out
+
+
+def device_idle(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's busy time
+    (the union of its kernels, copies and sets), the span from the first
+    to the last of them, the host wall of the call, and the idle share of
+    each."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"device_events": 0, "wall_ms": wall_ms,
+                "idle_share": "not measured (no device events traced)"}
+    busy, end = 0, spans[0][0]
+    for a, b in spans:
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    span_ms = (end - spans[0][0]) / 1e6
+    return {"device_events": len(spans), "busy_ms": busy / 1e6,
+            "span_ms": span_ms, "wall_ms": wall_ms,
+            "idle_share_of_span": 1 - busy / 1e6 / span_ms,
+            "idle_share_of_wall": 1 - busy / 1e6 / wall_ms}
 
 
 def drive(g, name: str, variant: str, reference: np.ndarray) -> dict:
@@ -689,7 +876,7 @@ def drive(g, name: str, variant: str, reference: np.ndarray) -> dict:
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    plain = solve(g, variant=variant, backend="torch")
+    plain = plain_solve(g, variant=variant)
     sync()
     for field in ("labels", "iterations", "converged", "edges_visited"):
         if not torch.equal(getattr(res, field), getattr(plain, field)):
@@ -714,12 +901,21 @@ def drive(g, name: str, variant: str, reference: np.ndarray) -> dict:
            "peak_bytes": peak, "launches": launches,
            "provenance": list(res.provenance or ()),
            "n_components": res.n_components}
+    reads = sum(count for site, count in out["host_syncs"]["sites"].items()
+                if site.startswith("converged.py"))
+    out["loop_reads"] = reads
+    if reads > -(-out["iterations"] // cv.CHUNK):
+        raise AssertionError(f"{name} {variant}: {reads} reads of the loop's "
+                             f"state for {out['iterations']} iterations")
     if variant == "C-2":
         L0 = torch.arange(g.n_vertices, dtype=torch.int32, device=g.device)
         out["parts_first_iteration"] = iteration_parts(g, L0)
         out["parts_at_fixed_point"] = iteration_parts(g, res.labels)
         out["loop_cost"] = loop_cost(g, res)
+        out["chunk_sweep"] = chunk_sweep(g, out["iterations"])
+        out["profiled_solve"] = device_idle(lambda: solve(g))
     emit(out)
+    out["labels"] = res.labels
     return out
 
 
@@ -811,7 +1007,7 @@ def drive_frontier(g, name: str, strategy: str,
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    same_result(res, solve(g, backend="torch", **options),
+    same_result(res, plain_solve(g, **options),
                 f"{name} {options} against the torch backend")
     if not bool(res.converged):
         raise AssertionError(f"{name} {options}: not converged")
@@ -826,6 +1022,243 @@ def drive_frontier(g, name: str, strategy: str,
            "edges_per_s": float(res.edges_visited) / wall,
            "peak_bytes": peak, "launches": launches,
            "provenance": list(res.provenance or ())}
+    emit(out)
+    return out
+
+
+def phase_converged(full: dict) -> dict:
+    """K6 (``converged_early``, ``labels_unchanged``) against its plain
+    versions on the card, at the main path's shapes.
+
+    ``full`` maps names to (graph, its C-2 solve's labels), rmat first.
+    On each graph, the four C-2 label states and the solve's fixed point:
+    the predicate's flag over every edge and over the frontier's prefix
+    limits (the sampling prefix m // 4, and m // 2) must equal the plain
+    version's; the no-change test's flag on each state against the next
+    (changed) and against a copy of itself (unchanged, a full pass) too.
+    Times: the kernel with the loop's step (a fresh state before each
+    call, untimed) against the plain version, per state; the kernels
+    line's are the fixed point of the first graph, the full pass."""
+    mismatches, checks, rows = [], 0, {}
+    first = None
+    for name, (g, fixed) in full.items():
+        m, n = g.n_edges, g.n_vertices
+        states = c2_states(g, 3) + [fixed]
+        state = cv.loop_state(g.device)
+        per = []
+        for i, L in enumerate(states):
+            label = i if i < 4 else "fixed"
+            for limit in (None, fr.sample_prefix_m(m), m // 2):
+                got = bool(cv.converged_early(L, g.src, g.dst, limit))
+                want = bool(cv.converged_early_plain(L, g.src, g.dst, limit))
+                if got != want:
+                    mismatches.append(("converged_early", name, label, limit))
+                checks += 1
+            same = L.clone()
+            nxt = states[i + 1] if i + 1 < len(states) else L.flip(0)
+            for b in (same, nxt):
+                if (bool(cv.labels_unchanged(L, b))
+                        != bool(cv.labels_unchanged_plain(L, b))):
+                    mismatches.append(("labels_unchanged", name, label))
+                checks += 1
+            per.append({
+                "state": label,
+                "converged": bool(cv.converged_early_plain(L, g.src, g.dst)),
+                "converged_early_ms": time_each_ms(
+                    lambda: cv.converged_early(L, g.src, g.dst, state=state),
+                    setup=state.zero_),
+                "plain_ms": time_ms(
+                    lambda: cv.converged_early_plain(L, g.src, g.dst)),
+                "labels_unchanged_ms": time_each_ms(
+                    lambda: cv.labels_unchanged(L, same, state=state),
+                    setup=state.zero_),
+                "labels_unchanged_changed_ms": time_each_ms(
+                    lambda: cv.labels_unchanged(L, nxt, state=state),
+                    setup=state.zero_),
+                "labels_unchanged_plain_ms": time_ms(
+                    lambda: cv.labels_unchanged_plain(L, same)),
+            })
+            del same, nxt
+        if per[-1]["converged"] is not True:
+            raise AssertionError(f"{name}: the solve's labels fail the "
+                                 "predicate")
+        rows[name] = per
+        if first is None:
+            fixed_copy = fixed.clone()
+            first = {
+                "shape": {"n": n, "m": m, "state": "fixed point"},
+                "converged_early": {
+                    "ms": per[-1]["converged_early_ms"],
+                    "plain_ms": per[-1]["plain_ms"],
+                    # read src, dst (8m) and the labels once (4n); per edge
+                    # three compares
+                    **bound(8 * m + 4 * n, 3 * m)},
+                "labels_unchanged": {
+                    "ms": per[-1]["labels_unchanged_ms"],
+                    "plain_ms": per[-1]["labels_unchanged_plain_ms"],
+                    "library_ms": time_ms(
+                        lambda: torch.equal(fixed, fixed_copy)),
+                    # read both arrays once; one compare an element
+                    **bound(8 * n, n)},
+            }
+            del fixed_copy
+    if mismatches:
+        raise AssertionError(f"K6 differs from its plain version: "
+                             f"{mismatches}")
+    emit({"phase": "converged_vs_plain", "checks": checks,
+          "states": rows, "bounds": {name: first[name]["bound_ms"]
+                                     for name in ("converged_early",
+                                                  "labels_unchanged")}})
+    out = {}
+    for name in ("converged_early", "labels_unchanged"):
+        out[name] = {"name": name, "route": "cuda",
+                     "source": CONVERGED_SOURCE,
+                     "replaces": REPLACES[name], "max_abs_err": 0,
+                     "library_ms": None, "shape": first["shape"],
+                     "ms_by_state": {g: [r[f"{name}_ms"] for r in rows[g]]
+                                     for g in rows},
+                     **first[name]}
+    return out
+
+
+def phase_jump(full: dict) -> dict:
+    """K7 (``pointer_jump``) against its plain version on the card: in the
+    four C-2 label states and at the fixed point of each graph in
+    ``full`` (as for :func:`phase_converged`), with the done word absent,
+    clear and set; times per state (each call after a flush of L2, as in
+    the loop, where the sweep before a jump evicts the labels), the
+    kernels line's on the first graph's identity labels."""
+    err, checks, rows, first = 0, 0, {}, None
+    for name, (g, fixed) in full.items():
+        n = g.n_vertices
+        word = {d: torch.tensor([d], dtype=torch.int32, device=g.device)
+                for d in (0, 1)}
+        per = []
+        for i, L in enumerate(c2_states(g, 3) + [fixed]):
+            for done in (None, word[0], word[1]):
+                a = cv.pointer_jump(L, done)
+                b = cv.pointer_jump_plain(L, done)
+                sync()
+                err = max(err, max_abs_err(a, b))
+                checks += 1
+                del a, b
+            per.append({"state": i if i < 4 else "fixed",
+                        "ms": time_each_ms(lambda: cv.pointer_jump(L),
+                                           setup=flush_l2),
+                        "frozen_ms": time_each_ms(
+                            lambda: cv.pointer_jump(L, word[1]),
+                            setup=flush_l2),
+                        "plain_ms": time_each_ms(
+                            lambda: cv.pointer_jump_plain(L),
+                            setup=flush_l2)})
+        rows[name] = per
+        if first is None:
+            first = {"shape": {"n": n, "state": 0}, "ms": per[0]["ms"],
+                     "plain_ms": per[0]["plain_ms"],
+                     # read L once and write the output once (the gather
+                     # L[L] reads the same input again); one min an element
+                     **bound(8 * n, n)}
+    if err:
+        raise AssertionError(f"pointer_jump differs from its plain "
+                             f"version: {err}")
+    emit({"phase": "jump_vs_plain", "checks": checks, "states": rows})
+    return {"name": "pointer_jump", "route": "cuda", "source":
+            CONVERGED_SOURCE, "replaces": REPLACES["pointer_jump"],
+            "max_abs_err": err, "library_ms": None,
+            "ms_by_state": {g: [r["ms"] for r in rows[g]] for g in rows},
+            **first}
+
+
+def fastsv_freeze_cost(g) -> dict:
+    """Device ms of one FastSV iteration from the identity labels as the
+    loop enqueues it (the iteration, then the no-change test with the
+    loop's step; a fresh state before each call, untimed), with and
+    without the freeze that keeps ``(f, gf)`` once the done word is set
+    (two ``torch.where`` over n), and of the freeze alone."""
+    u = torch.cat([g.src, g.dst])
+    v = torch.cat([g.dst, g.src])
+    f = torch.arange(g.n_vertices, dtype=torch.int32, device=g.device)
+    state = cv.loop_state(g.device)
+    done = cv.done_word(state)
+
+    def bare():
+        f1, gf1 = fastsv.iteration(f, f, u, v, done)
+        cv.labels_unchanged(gf1, f, state=state)
+
+    def frozen():
+        f1, gf1 = fastsv.freeze(done, (f, f),
+                                fastsv.iteration(f, f, u, v, done))
+        cv.labels_unchanged(gf1, f, state=state)
+
+    new = fastsv.iteration(f, f, u, v, done)
+    out = {"iteration_ms": time_each_ms(bare, setup=state.zero_),
+           "iteration_with_freeze_ms": time_each_ms(frozen,
+                                                    setup=state.zero_),
+           "freeze_ms": time_ms(lambda: fastsv.freeze(done, (f, f), new))}
+    out["freeze_share"] = 1 - out["iteration_ms"] / out[
+        "iteration_with_freeze_ms"]
+    return out
+
+
+def drive_baseline(g, name: str, algorithm: str, reference: np.ndarray,
+                   on_cpu: bool, dense_warm_ms=None) -> dict:
+    """One solve of a baseline family with the launch counts read around
+    it: labels equal to scipy's; with ``on_cpu`` the same solve on CPU
+    tensors must give the same labels, iterations and converged."""
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(g, algorithm=algorithm)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if not bool(res.converged):
+        raise AssertionError(f"{name} {algorithm}: not converged")
+    if res.labels.device.type != "cuda":
+        raise AssertionError(f"{name} {algorithm}: labels on "
+                             f"{res.labels.device}")
+    if not np.array_equal(res.labels.cpu().numpy(), reference):
+        raise AssertionError(f"{name} {algorithm}: labels differ from scipy")
+    if algorithm != "union_find":
+        for kernel_name in ("scatter_min", "labels_unchanged"):
+            if launches[kernel_name] <= 0:
+                raise AssertionError(f"{name} {algorithm} did not launch "
+                                     f"{kernel_name}")
+    # Rem is a Python loop over the edges: one warm solve
+    reps = 1 if algorithm == "union_find" else 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        solve(g, algorithm=algorithm)
+        sync()
+    iters = int(res.iterations)
+    out = {"phase": "baseline_path", "graph": name, "algorithm": algorithm,
+           "n": g.n_vertices, "m": g.n_edges, "wall_s": wall,
+           "wall_warm_ms": (time.perf_counter() - t0) / reps * 1e3,
+           "iterations": iters, "converged": bool(res.converged),
+           "launches": launches, "n_components": res.n_components}
+    # edges swept: every edge once an iteration (a union-find pass is one)
+    out["edges_per_s"] = iters * g.n_edges / (out["wall_warm_ms"] / 1e3)
+    if dense_warm_ms is None:
+        solve(g)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            solve(g)
+            sync()
+        dense_warm_ms = (time.perf_counter() - t0) / 3 * 1e3
+    out["dense_c2_warm_ms"] = dense_warm_ms
+    out["x_dense_c2"] = out["wall_warm_ms"] / dense_warm_ms
+    if algorithm != "union_find":
+        out["host_syncs"] = host_syncs(
+            lambda: solve(g, algorithm=algorithm))["total"]
+    if on_cpu:
+        t0 = time.perf_counter()
+        cpu = solve(cpu_copy(g), algorithm=algorithm)
+        out["cpu_solve_s"] = time.perf_counter() - t0
+        for field in ("labels", "iterations", "converged"):
+            if not torch.equal(getattr(res, field).cpu(), getattr(cpu, field)):
+                raise AssertionError(f"{name} {algorithm}: {field} differs "
+                                     "from the solve on CPU tensors")
     emit(out)
     return out
 
@@ -1169,6 +1602,7 @@ def main(argv=None) -> int:
     ap.add_argument("--async-rmat-scale", type=int, default=20)
     ap.add_argument("--async-delaunay-scale", type=int, default=21)
     ap.add_argument("--check-scale", type=int, default=16)
+    ap.add_argument("--lp-delaunay-scale", type=int, default=18)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1289,10 +1723,22 @@ def main(argv=None) -> int:
             drive(rmat, rmat_name, "C-2", ref_rmat)]
     if not all(r["launches"]["fused_relax"] > 0 for r in runs):
         raise AssertionError("the main path did not launch fused_relax")
+    if not all(r["launches"]["converged_early"] > 0
+               and r["launches"]["pointer_jump"] > 0 for r in runs):
+        raise AssertionError("the main path did not launch converged_early "
+                             "and pointer_jump")
     c11 = drive(rmat, rmat_name, "C-11mm", ref_rmat)
     if c11["launches"]["scatter_min"] <= 0:
         raise AssertionError("C-11mm did not launch scatter_min")
     runs.append(c11)
+    # the loop's kernels against their plain versions, at the main path's
+    # label states and the solves' fixed points
+    fixed = {rmat_name: (rmat, runs[1].pop("labels")),
+             delaunay_name: (delaunay, runs[0].pop("labels"))}
+    del c11["labels"]
+    kernels.update(phase_converged(fixed))
+    kernels["pointer_jump"] = phase_jump(fixed)
+    del fixed
     emit({"phase": "main_path_done", "seconds": time.perf_counter() - t0})
 
     # 6. the async path: cuda_async on the in-order kernel; the first
@@ -1328,7 +1774,43 @@ def main(argv=None) -> int:
     emit({"phase": "frontier_path_done",
           "seconds": time.perf_counter() - t0})
 
-    # 8. the kernels line: launches summed over every path's runs
+    # 8. the baseline families: FastSV on the main path's graphs, label
+    # propagation on rmat and on a smaller mesh (its iterations grow with
+    # the diameter), Rem (a host loop) only at the check scale, where every
+    # family is also held against its solve on CPU tensors
+    t0 = time.perf_counter()
+    dense_ms = {delaunay_name: runs[0]["loop_cost"]["solve_ms"],
+                rmat_name: runs[1]["loop_cost"]["solve_ms"]}
+    lp_name = f"delaunay_like({args.lp_delaunay_scale})"
+    lp_graph = gen.delaunay_like(args.lp_delaunay_scale, device=DEVICE)
+    baseline_runs = [
+        drive_baseline(delaunay, delaunay_name, "fastsv", ref_delaunay,
+                       False, dense_ms[delaunay_name]),
+        drive_baseline(rmat, rmat_name, "fastsv", ref_rmat, False,
+                       dense_ms[rmat_name]),
+        drive_baseline(rmat, rmat_name, "label_propagation", ref_rmat, False,
+                       dense_ms[rmat_name]),
+        drive_baseline(lp_graph, lp_name, "label_propagation",
+                       scipy_labels(lp_graph), False)]
+    del lp_graph
+    for name, g in ((delaunay_name, delaunay), (rmat_name, rmat)):
+        emit({"phase": "fastsv_freeze", "graph": name,
+              **fastsv_freeze_cost(g)})
+    for name, g in (
+            (f"delaunay_like({args.check_scale})",
+             gen.delaunay_like(args.check_scale, device=DEVICE)),
+            (f"rmat({args.check_scale},{RMAT_EDGE_FACTOR})",
+             gen.rmat(args.check_scale, edge_factor=RMAT_EDGE_FACTOR,
+                      device=DEVICE))):
+        ref = scipy_labels(g)
+        baseline_runs += [drive_baseline(g, name, a, ref, True)
+                          for a in ("fastsv", "label_propagation",
+                                    "union_find")]
+    runs += baseline_runs
+    emit({"phase": "baseline_path_done",
+          "seconds": time.perf_counter() - t0})
+
+    # 9. the kernels line: launches summed over every path's runs
     line = []
     for name in KERNEL_NAMES:
         k = dict(kernels[name])

@@ -14,6 +14,11 @@
     # the work-adaptive frontier, on any backend
     solve(graph, sampling=2, compact_every=2, sampling_strategy="kout")
     solve(graph, backend="cuda_async")          # in-order async sweeps
+
+    # the paper's baselines: FastSV, label propagation, Rem's union-find
+    solve(graph, algorithm="fastsv")
+    solve(graph, algorithm="lp")
+    solve(graph, algorithm="connectit")         # on the host
 """
 from repro_torch.connectivity.frontier import (
     SAMPLING_STRATEGIES,
@@ -29,7 +34,7 @@ from repro_torch.connectivity.registry import (
     register_solver,
     solver_specs,
 )
-from repro_torch.connectivity import solvers as _solvers  # registers contour
+from repro_torch.connectivity import solvers as _solvers  # registers them
 from repro_torch.connectivity.solve import solve
 from repro_torch.connectivity.contour import VARIANTS
 from repro_torch.graphs.structs import Graph

@@ -14,10 +14,16 @@ The port's counterpart of ``repro.connectivity.contour``.  Variants
 * ``C-1m1m`` — alternate C-1 and C-m per iteration.
 * ``C-<h>``  — the literal h-order operator of Definition 3.
 
-Every sweep goes through ``kernels.contour_mm.ops.mm_relax_backend``.  The
-loop runs on the host: after each iteration it reads one convergence flag
-from the device, so ``iterations`` is the first converged iteration,
-exactly as in the reference's ``lax.while_loop``.
+Every sweep goes through ``kernels.contour_mm.ops.mm_relax_backend``.
+The dense loop keeps its state on the device, as the reference's
+``lax.while_loop`` does (``kernels.contour_mm.converged``; its kernels
+on the ``cuda`` backends, their plain versions on ``torch``): each
+iteration's convergence test also does the loop's step (``it += 1``,
+``done`` = the test) in the ``it``/``done`` words, and the sweeps and
+jump rounds of later iterations read ``done`` and do nothing once it is
+set.  The host enqueues ``converged.CHUNK`` iterations at a time and
+reads ``(done, it)`` once per chunk, so ``iterations`` is the first
+converged iteration however many were enqueued past it.
 
 ``sampling`` / ``compact_every`` enable the work-adaptive frontier
 schedule of ``connectivity.frontier`` (masked realisation; the staged one
@@ -33,6 +39,7 @@ import torch
 
 from repro_torch.connectivity import frontier as fr
 from repro_torch.connectivity import minmap as lab
+from repro_torch.kernels.contour_mm import converged as cv
 from repro_torch.kernels.contour_mm import ops as mm_ops
 
 VARIANTS = ("C-Syn", "C-1", "C-2", "C-m", "C-11mm", "C-1m1m")
@@ -44,56 +51,64 @@ _CM_JUMP_ROUNDS = 10
 
 def _make_step(variant: str, warmup: int, async_compress: int,
                backend: str = "torch", fuse: bool = True):
-    """Return step(L, it, src, dst, limit=None) -> L_new for the variant.
+    """Return step(L, it, src, dst, limit=None, done=None) -> L_new for the
+    variant.
 
-    ``it`` is the Python iteration counter; C-11mm and C-1m1m branch on it
+    ``it`` is the host's iteration counter; C-11mm and C-1m1m branch on it
     where the reference used ``lax.cond``.  ``limit`` is the frontier
-    bound (None: every edge, the dense schedule).
+    bound (None: every edge, the dense schedule).  ``done`` is the dense
+    loop's flag word: once it is set the step returns its input labels
+    (a sweep past the early-convergence point is a no-op anyway; the jump
+    rounds would still shorten chains of vertices on no edge).
     """
 
-    def relax(L, src, dst, order, limit):
+    jump = cv.loop_ops(backend).pointer_jump
+
+    def relax(L, src, dst, order, limit, done):
         return mm_ops.mm_relax_backend(L, src, dst, order=order,
                                        backend=backend, edge_limit=limit,
-                                       fuse=fuse)
+                                       fuse=fuse, done=done)
 
-    def sweep_async(L, src, dst, order, jump_rounds, limit):
+    def sweep_async(L, src, dst, order, jump_rounds, limit, done):
         """MM^order + pointer-jump recompaction (``async_compress`` extra
         rounds spread freshly lowered labels inside the iteration)."""
-        L = relax(L, src, dst, order, limit)
-        return lab.pointer_jump(L, rounds=jump_rounds + async_compress)
+        L = relax(L, src, dst, order, limit, done)
+        for _ in range(jump_rounds + async_compress):
+            L = jump(L, done)
+        return L
 
-    def low(L, src, dst, limit):
-        return sweep_async(L, src, dst, 1, 0, limit)
+    def low(L, src, dst, limit, done):
+        return sweep_async(L, src, dst, 1, 0, limit, done)
 
-    def high(L, src, dst, limit):
-        return sweep_async(L, src, dst, 2, _CM_JUMP_ROUNDS, limit)
+    def high(L, src, dst, limit, done):
+        return sweep_async(L, src, dst, 2, _CM_JUMP_ROUNDS, limit, done)
 
     if variant == "C-Syn":
-        def step(L, it, src, dst, limit=None):
-            return relax(L, src, dst, 2, limit)
+        def step(L, it, src, dst, limit=None, done=None):
+            return relax(L, src, dst, 2, limit, done)
     elif variant == "C-1":
-        def step(L, it, src, dst, limit=None):
-            return low(L, src, dst, limit)
+        def step(L, it, src, dst, limit=None, done=None):
+            return low(L, src, dst, limit, done)
     elif variant == "C-2":
-        def step(L, it, src, dst, limit=None):
-            return sweep_async(L, src, dst, 2, 0, limit)
+        def step(L, it, src, dst, limit=None, done=None):
+            return sweep_async(L, src, dst, 2, 0, limit, done)
     elif variant == "C-m":
-        def step(L, it, src, dst, limit=None):
-            return high(L, src, dst, limit)
+        def step(L, it, src, dst, limit=None, done=None):
+            return high(L, src, dst, limit, done)
     elif variant == "C-11mm":
-        def step(L, it, src, dst, limit=None):
-            return (low(L, src, dst, limit) if it < warmup
-                    else high(L, src, dst, limit))
+        def step(L, it, src, dst, limit=None, done=None):
+            return (low(L, src, dst, limit, done) if it < warmup
+                    else high(L, src, dst, limit, done))
     elif variant == "C-1m1m":
-        def step(L, it, src, dst, limit=None):
-            return (low(L, src, dst, limit) if it % 2 == 0
-                    else high(L, src, dst, limit))
+        def step(L, it, src, dst, limit=None, done=None):
+            return (low(L, src, dst, limit, done) if it % 2 == 0
+                    else high(L, src, dst, limit, done))
     elif variant.startswith("C-") and variant[2:].isdigit():
         # literal h-order minimum-mapping operator (Definition 3)
         order = int(variant[2:])
 
-        def step(L, it, src, dst, limit=None):
-            return sweep_async(L, src, dst, order, 0, limit)
+        def step(L, it, src, dst, limit=None, done=None):
+            return sweep_async(L, src, dst, order, 0, limit, done)
     else:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS} "
                          "or literal 'C-<h>'")
@@ -144,6 +159,7 @@ def contour_labels(
             "work-adaptive schedule; use C-2/C-m (or any async variant) "
             "with sampling/compact_every")
     step = _make_step(variant, warmup, async_compress, backend, fuse)
+    loop = cv.loop_ops(backend)
     device = src.device
     L = lab.resolve_init_labels(init_labels, n_vertices, device, src.dtype)
 
@@ -155,23 +171,25 @@ def contour_labels(
         L, it, done, visited = fr.adaptive_fixpoint(
             src, dst, L, step, n_vertices=n_vertices, sampling=sampling,
             compact_every=compact_every, max_iters=max_iters,
-            sample_m0=sample_m)
+            sample_m0=sample_m, loop=loop)
         return (L, torch.tensor(it, dtype=torch.int32, device=device),
                 torch.tensor(done, device=device),
                 torch.tensor(visited, dtype=torch.float32, device=device))
 
-    it, done = 0, False
-    while not done and it < max_iters:
-        L_new = step(L, it, src, dst)
-        if sync:
-            done = torch.equal(L_new, L)  # Alg. 1 line 10: no label change
-        else:
-            done = bool(lab.converged_early(L_new, src, dst))  # §III-B2
-        L = L_new
-        it += 1
+    state = cv.loop_state(device)
+    done = cv.done_word(state)
+
+    def body(it, L):
+        L_new = step(L, it, src, dst, done=done)
+        if sync:  # Alg. 1 line 10: no label change
+            loop.labels_unchanged(L_new, L, state=state)
+        else:  # §III-B2
+            loop.converged_early(L_new, src, dst, state=state)
+        return L_new
+
+    L = cv.device_loop(body, L, state, max_iters)
     # Final compression: interior vertices of chains off the edge endpoints
     # may still be one hop from their star root.
-    L = lab.pointer_jump(L, rounds=1)
-    return (L, torch.tensor(it, dtype=torch.int32, device=device),
-            torch.tensor(done, device=device),
-            mm_ops.edges_visited(it, int(src.shape[0]), device))
+    L = loop.pointer_jump(L)
+    it, done = cv.loop_result(state)
+    return L, it, done, mm_ops.edges_visited(it, int(src.shape[0]), device)

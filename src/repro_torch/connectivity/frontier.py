@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.connectivity import minmap as lab
+from repro_torch.kernels.contour_mm import converged as cv
 
 # The deterministic sampling prefix is m // SAMPLE_PREFIX_DENOM edges (at
 # least 1: a zero-width prefix would make every sampling iteration a
@@ -235,11 +236,15 @@ def contract_edges(
 
 
 def masked_converged_early(L: torch.Tensor, src: torch.Tensor,
-                           dst: torch.Tensor, active_m: int) -> torch.Tensor:
+                           dst: torch.Tensor, active_m: int,
+                           test: Callable = cv.converged_early
+                           ) -> torch.Tensor:
     """Paper §III-B2 early-convergence predicate over the active prefix
     (retired edges lie inside their components); with no active edge the
-    solve has converged."""
-    return lab.converged_early(L, src[:active_m], dst[:active_m])
+    solve has converged.  ``test`` is a backend's (``converged.loop_ops``;
+    default the kernel, its plain version on CPU tensors); not read
+    here."""
+    return test(L, src, dst, edge_limit=active_m)
 
 
 def frontier_limit(it: int, active_m: int, sample_m: int,
@@ -277,13 +282,15 @@ def apply_compaction(
     return src, dst, active_m
 
 
-def compress_full(L: torch.Tensor) -> torch.Tensor:
+def compress_full(L: torch.Tensor,
+                  jump: Callable = cv.pointer_jump) -> torch.Tensor:
     """Pointer-jump to the star-forest fixed point (one flag read per
-    round).  Vertices retired by contraction hang off pointer chains of
-    any depth, so the adaptive path ends here instead of with the dense
-    schedule's single jump."""
+    round; ``jump`` is a backend's round, as :func:`masked_converged_early`
+    takes its test).  Vertices retired by contraction hang off pointer
+    chains of any depth, so the adaptive path ends here instead of with
+    the dense schedule's single jump."""
     while not bool(lab.is_star_forest(L)):
-        L = lab.pointer_jump(L, rounds=1)
+        L = jump(L)
     return L
 
 
@@ -298,6 +305,9 @@ class FrontierState:
     it: int = 0
     done: bool = False
     visited: np.float32 = np.float32(0)  # float32 sum of sweep bounds
+    # the backend's test and jump round (converged.loop_ops)
+    loop: cv.LoopOps = dataclasses.field(
+        default_factory=lambda: cv.loop_ops("cuda"))
 
 
 def advance(s: FrontierState, step, *, sample_m: int, sampling: int,
@@ -317,7 +327,8 @@ def advance(s: FrontierState, step, *, sample_m: int, sampling: int,
     src, dst = sweep if sweep is not None else (s.src, s.dst)
     s.L = step(s.L, s.it, src, dst, limit)
     s.visited = np.float32(s.visited + np.float32(limit))
-    s.done = bool(masked_converged_early(s.L, s.src, s.dst, s.active_m))
+    s.done = bool(masked_converged_early(s.L, s.src, s.dst, s.active_m,
+                                         s.loop.converged_early))
     s.it += 1
     if not s.done and s.it < max_iters:
         s.src, s.dst, s.active_m = apply_compaction(
@@ -336,22 +347,25 @@ def adaptive_fixpoint(
     compact_every: int,
     max_iters: int,
     sample_m0: Optional[int] = None,
+    loop: Optional[cv.LoopOps] = None,
 ):
     """Run ``step`` to the connectivity fixed point, work-adaptively (the
     masked realisation: the edge arrays keep their length).
 
     ``step(L, it, src, dst, limit)`` sweeps the first ``limit`` edges.
     ``sample_m0`` is the sample width (default :func:`sample_prefix_m`),
-    as a strategy's :func:`prepare_sampling` gives it.
+    as a strategy's :func:`prepare_sampling` gives it.  ``loop`` is the
+    backend's test and jump round (default the kernels').
 
     Returns ``(labels, iterations, converged, edges_visited)``: an int
     and a bool beside the labels, and a float32 counter.
     """
     m = int(src.shape[0])
     sample_m = sample_prefix_m(m) if sample_m0 is None else int(sample_m0)
-    s = FrontierState(L=L0, src=src, dst=dst, active_m=m)
+    s = FrontierState(L=L0, src=src, dst=dst, active_m=m,
+                      loop=loop or cv.loop_ops("cuda"))
     while not s.done and s.it < max_iters:
         advance(s, step, sample_m=sample_m, sampling=sampling,
                 compact_every=compact_every, n_vertices=n_vertices,
                 max_iters=max_iters)
-    return compress_full(s.L), s.it, s.done, s.visited
+    return compress_full(s.L, s.loop.pointer_jump), s.it, s.done, s.visited

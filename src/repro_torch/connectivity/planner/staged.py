@@ -29,6 +29,7 @@ import torch
 from repro_torch.connectivity import frontier as fr
 from repro_torch.connectivity import minmap as lab
 from repro_torch.connectivity.planner.plan import next_pow2
+from repro_torch.kernels.contour_mm import converged as cv
 
 # The reference's floor (staged.py:59): below this capacity a stage runs
 # to convergence instead of re-slicing.
@@ -49,7 +50,7 @@ def _stage(s: fr.FrontierState, step, *, sampling: int, compact_every: int,
         fr.advance(s, step, sample_m=fr.sample_prefix_m(m),
                    sampling=sampling, compact_every=compact_every,
                    n_vertices=n_vertices, max_iters=max_iters)
-    s.L = fr.compress_full(s.L)
+    s.L = fr.compress_full(s.L, s.loop.pointer_jump)
 
 
 def _shrink(s: fr.FrontierState) -> bool:
@@ -98,7 +99,8 @@ def staged_adaptive_labels(
     step = _make_step(variant, warmup, async_compress, backend, fuse)
     device = src.device
     L = lab.resolve_init_labels(init_labels, n_vertices, device, src.dtype)
-    s = fr.FrontierState(L=L, src=src, dst=dst, active_m=int(src.shape[0]))
+    s = fr.FrontierState(L=L, src=src, dst=dst, active_m=int(src.shape[0]),
+                         loop=cv.loop_ops(backend))
     common = dict(sampling=sampling, n_vertices=n_vertices,
                   max_iters=max_iters)
 
@@ -120,7 +122,7 @@ def staged_adaptive_labels(
             fr.advance(s, step, sample_m=sm, compact_every=0, sweep=sample,
                        **common)
         if s.done or s.it >= max_iters:
-            s.L = fr.compress_full(s.L)
+            s.L = fr.compress_full(s.L, s.loop.pointer_jump)
             return result()
         # the filter may have collapsed the frontier: slice straight away
         _shrink(s)

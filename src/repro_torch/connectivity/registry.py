@@ -1,7 +1,9 @@
 """Solver registry: every connectivity algorithm family behind one signature.
 
 A copy of the JAX package's registry, so the port's facade looks solvers
-up the same way.  This slice registers only ``contour``.
+up the same way.  ``connectivity.solvers`` registers the port's
+families: ``contour``, ``fastsv``, ``label_propagation`` and
+``union_find``.
 
 A registered solver is a callable
 

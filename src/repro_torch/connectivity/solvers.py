@@ -1,13 +1,26 @@
 """Registered solver families of the port.
 
-The port registers ``contour`` (paper §III-B, all variants) on the
-dense schedule and on both realisations of the work-adaptive frontier,
-with the reference's variants and iteration budget.  The other families
-of ``repro.connectivity.solvers`` come with later slices.
+Four families of ``repro.connectivity.solvers``, one signature, with the
+reference's variants, iteration budgets and capability flags:
+
+* ``contour``           — paper §III-B, all variants (Alg. 1 + §III-B4),
+  on the dense schedule and on both realisations of the work-adaptive
+  frontier;
+* ``fastsv``            — paper §III-C, the Shiloach-Vishkin family
+  (Zhang, Azad & Hu);
+* ``label_propagation`` — paper §I/§V, the traversal-family baseline;
+* ``union_find``        — paper §III-C, the ConnectIt stand-in (Rem's
+  union-find with splicing, on the host).
+
+The reference's ``distributed``, ``oocore`` and ``auto`` come with later
+slices.
 """
 from __future__ import annotations
 
 from repro_torch.connectivity import contour as _contour
+from repro_torch.connectivity import fastsv as _fastsv
+from repro_torch.connectivity import lp as _lp
+from repro_torch.connectivity import unionfind as _unionfind
 from repro_torch.connectivity.planner import staged as _staged
 from repro_torch.connectivity.planner.heuristics import heuristic_plan
 from repro_torch.connectivity.registry import SolverSpec, register_solver
@@ -59,6 +72,22 @@ def _contour_solver(graph, opts, init_labels):
     return (*out, (plan.provenance_entry(), *_sampling_provenance(opts)))
 
 
+def _fastsv_solver(graph, opts, init_labels):
+    return _fastsv.fastsv_labels(graph.src, graph.dst, graph.n_vertices,
+                                 init_labels, max_iters=opts.max_iters)
+
+
+def _lp_solver(graph, opts, init_labels):
+    return _lp.label_propagation_labels(graph.src, graph.dst,
+                                        graph.n_vertices, init_labels,
+                                        max_iters=opts.max_iters)
+
+
+def _union_find_solver(graph, opts, init_labels):
+    return _unionfind.rem_labels(graph.src, graph.dst, graph.n_vertices,
+                                 init_labels=init_labels)
+
+
 CONTOUR = register_solver(SolverSpec(
     name="contour",
     fn=_contour_solver,
@@ -66,4 +95,29 @@ CONTOUR = register_solver(SolverSpec(
     default_variant="C-2",
     default_max_iters=100_000,
     paper_ref="§III-B (Alg. 1, variants §III-B4)",
+))
+
+FASTSV = register_solver(SolverSpec(
+    name="fastsv",
+    fn=_fastsv_solver,
+    default_max_iters=256,
+    paper_ref="§III-C (FastSV / Shiloach-Vishkin family)",
+))
+
+LABEL_PROPAGATION = register_solver(SolverSpec(
+    name="label_propagation",
+    fn=_lp_solver,
+    aliases=("lp",),
+    default_max_iters=100_000,
+    paper_ref="§I/§V (traversal-family baseline)",
+))
+
+UNION_FIND = register_solver(SolverSpec(
+    name="union_find",
+    fn=_union_find_solver,
+    aliases=("connectit", "rem"),
+    default_max_iters=1,
+    supports_batch=False,        # host-side sequential loop
+    runs_on="host",
+    paper_ref="§III-C (ConnectIt stand-in: Rem's union-find)",
 ))

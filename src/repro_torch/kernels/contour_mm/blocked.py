@@ -37,6 +37,13 @@ stream, raises if the launch reports an error, and adds one to its
 :func:`scatter_min_sweep` launch on CUDA tensors and, with ``counts``,
 return the kernel's counts of :data:`COUNTERS` too.
 
+Every wrapper and plain version takes ``done``, the fixpoint loop's flag
+word (``converged.py``): an int32 tensor of one element on the labels'
+device, or None.  Where it is set the sweep returns a copy of ``L``: past
+the loop's early-convergence point a sweep is an exact no-op, and the
+kernel then skips its pass over the edges.  The kernel reads the word on
+the card, so the host does not wait for it.
+
 Ids outside ``[0, n)`` (``n = len(L)``) raise ``IndexError`` on both
 devices: the plain versions check before they gather, and the kernels
 check every id before they follow it, skip it, and set an error word
@@ -81,11 +88,11 @@ _SCATTER_IDS = "scatter_min: an update target"
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the API of a ``contour_mm`` library."""
     i64, i32 = ctypes.c_int64, ctypes.c_int
-    lib.contour_fused_relax.argtypes = [_P, _P, _P, _P, i64, _P, i64, _P,
-                                        _P]
-    lib.contour_fused_relax.restype = i32
-    lib.contour_scatter_min.argtypes = [_P, _P, _P, _P, _P, i64, _P, i64,
+    lib.contour_fused_relax.argtypes = [_P, _P, _P, _P, i64, _P, _P, i64,
                                         _P, _P]
+    lib.contour_fused_relax.restype = i32
+    lib.contour_scatter_min.argtypes = [_P, _P, _P, _P, _P, i64, _P, _P,
+                                        i64, _P, _P]
     lib.contour_scatter_min.restype = i32
     return lib
 
@@ -110,6 +117,26 @@ def on_cuda(L: torch.Tensor) -> bool:
     if L.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for tensors on {L.device}")
+
+
+def check_done(done: Optional[torch.Tensor],
+               device: torch.device) -> Optional[int]:
+    """The address of the loop's done word (None: no word), after checking
+    that it is one int32 element on ``device``."""
+    if done is None:
+        return None
+    if done.dtype != torch.int32 or done.numel() != 1:
+        raise TypeError(f"done must be one int32 element, got {done.dtype} "
+                        f"of shape {tuple(done.shape)}")
+    if done.device != device:
+        raise ValueError(f"done is on {done.device}, L on {device}")
+    return done.data_ptr()
+
+
+def frozen(done: Optional[torch.Tensor]) -> bool:
+    """Whether the done word is set: the plain versions' test, on CPU
+    tensors, where reading it costs no wait."""
+    return done is not None and bool(done.reshape(()))
 
 
 def _check_ids(what: str, ids: torch.Tensor, n: int) -> None:
@@ -160,8 +187,10 @@ def _result(out: torch.Tensor, counter: Optional[torch.Tensor]):
 
 
 def fused_relax_plain(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                      edge_limit=None) -> torch.Tensor:
+                      edge_limit=None, done=None) -> torch.Tensor:
     """Plain torch version of :func:`fused_relax` (the same function)."""
+    if frozen(done):
+        return L.clone()
     n = int(L.shape[0])
     m = edge_count(int(src.shape[0]), edge_limit)
     src, dst = src[:m], dst[:m]
@@ -185,7 +214,7 @@ def check_edges(L: torch.Tensor, src: torch.Tensor,
 
 def fused_relax_sweep(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                       edge_limit=None, *, check: bool = True,
-                      counts: bool = False):
+                      counts: bool = False, done=None):
     """Launch the kernel once on CUDA tensors; returns the new labels, and
     with ``counts`` also the counts of :data:`COUNTERS` (which waits for
     the kernel).  :func:`fused_relax` is this at the defaults."""
@@ -194,6 +223,7 @@ def fused_relax_sweep(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         raise ValueError("fused_relax's kernel takes CUDA tensors; "
                          "fused_relax() runs the plain version on CPU "
                          "tensors")
+    done_ptr = check_done(done, L.device)
     L, src, dst = L.contiguous(), src.contiguous(), dst.contiguous()
     m = edge_count(int(src.shape[0]), edge_limit)
     out = L.clone()
@@ -201,13 +231,14 @@ def fused_relax_sweep(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if m > 0:
         launch(load_library().contour_fused_relax, L.data_ptr(),
                out.data_ptr(), src.data_ptr(), dst.data_ptr(), m,
-               None if counter is None else counter.data_ptr(),
+               None if counter is None else counter.data_ptr(), done_ptr,
                wrapper=fused_relax, check=check, what=_FUSED_IDS, L=L)
     return _result(out, counter)
 
 
 def fused_relax(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                edge_limit=None, *, check: bool = True) -> torch.Tensor:
+                edge_limit=None, *, check: bool = True,
+                done=None) -> torch.Tensor:
     """One synchronous order-2 min-mapping sweep; returns new labels.
 
     Equals ``minmap.mm_relax(L, src, dst, 2)`` bit for bit.  Edges at
@@ -217,12 +248,12 @@ def fused_relax(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     is a no-op, and the two agree.  An endpoint, or a label at one,
     outside ``[0, len(L))`` raises IndexError; on the card,
     ``check=False`` skips such an edge instead and does not wait for the
-    kernel.
+    kernel.  With ``done`` set it returns a copy of ``L``.
     """
     check_edges(L, src, dst)
     if not on_cuda(L):
-        return fused_relax_plain(L, src, dst, edge_limit)
-    return fused_relax_sweep(L, src, dst, edge_limit, check=check)
+        return fused_relax_plain(L, src, dst, edge_limit, done)
+    return fused_relax_sweep(L, src, dst, edge_limit, check=check, done=done)
 
 
 fused_relax.launches = 0
@@ -302,8 +333,11 @@ def fused_relax_combined_replay(L: torch.Tensor, src: torch.Tensor,
 
 def scatter_min_plain(L: torch.Tensor, targets: torch.Tensor,
                       values: torch.Tensor,
-                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      valid: Optional[torch.Tensor] = None,
+                      done=None) -> torch.Tensor:
     """Plain torch version of :func:`scatter_min` (the same function)."""
+    if frozen(done):
+        return L.clone()
     if valid is not None:
         targets, values = targets[valid], values[valid]
     _check_ids(_SCATTER_IDS, targets, int(L.shape[0]))
@@ -332,7 +366,7 @@ def check_updates(L: torch.Tensor, targets: torch.Tensor,
 def scatter_min_sweep(L: torch.Tensor, targets: torch.Tensor,
                       values: torch.Tensor,
                       valid: Optional[torch.Tensor] = None, *,
-                      check: bool = True, counts: bool = False):
+                      check: bool = True, counts: bool = False, done=None):
     """Launch the kernel once on CUDA tensors; returns the new labels, and
     with ``counts`` also the counts of :data:`COUNTERS` (which waits for
     the kernel).  :func:`scatter_min` is this at the defaults."""
@@ -341,6 +375,7 @@ def scatter_min_sweep(L: torch.Tensor, targets: torch.Tensor,
         raise ValueError("scatter_min's kernel takes CUDA tensors; "
                          "scatter_min() runs the plain version on CPU "
                          "tensors")
+    done_ptr = check_done(done, L.device)
     L, targets, values = L.contiguous(), targets.contiguous(), \
         values.contiguous()
     if valid is not None:
@@ -352,23 +387,24 @@ def scatter_min_sweep(L: torch.Tensor, targets: torch.Tensor,
         launch(load_library().contour_scatter_min, L.data_ptr(),
                out.data_ptr(), targets.data_ptr(), values.data_ptr(),
                None if valid is None else valid.data_ptr(), k,
-               None if counter is None else counter.data_ptr(),
+               None if counter is None else counter.data_ptr(), done_ptr,
                wrapper=scatter_min, check=check, what=_SCATTER_IDS, L=L)
     return _result(out, counter)
 
 
 def scatter_min(L: torch.Tensor, targets: torch.Tensor, values: torch.Tensor,
                 valid: Optional[torch.Tensor] = None, *,
-                check: bool = True) -> torch.Tensor:
+                check: bool = True, done=None) -> torch.Tensor:
     """``L.at[targets].min(values)``, skipping updates where ``valid`` is
     False; returns new labels (``L`` is not modified).  A live target
     outside ``[0, len(L))`` raises IndexError; on the card,
     ``check=False`` skips such an update instead and does not wait for
-    the kernel."""
+    the kernel.  With ``done`` set it returns a copy of ``L``."""
     check_updates(L, targets, values, valid)
     if not on_cuda(L):
-        return scatter_min_plain(L, targets, values, valid)
-    return scatter_min_sweep(L, targets, values, valid, check=check)
+        return scatter_min_plain(L, targets, values, valid, done)
+    return scatter_min_sweep(L, targets, values, valid, check=check,
+                             done=done)
 
 
 scatter_min.launches = 0

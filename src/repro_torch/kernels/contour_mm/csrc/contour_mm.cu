@@ -70,6 +70,11 @@
 // valid mask), so any 4-byte-aligned base (a slice) and any length are
 // taken.
 //
+// A sweep whose done word (the fixpoint loop's flag, converged.cu) is set
+// returns at once: the wrapper's output is a copy of L, so the labels stay
+// as they are.  Past the loop's early-convergence point a sweep is an
+// exact no-op anyway; the word saves the pass over the edges.
+//
 // Index ranges are checked here, on the card: every id the kernels follow
 // (an edge endpoint, the label found there, an update target) is compared
 // with n before it is used.  An id outside [0, n) is never read or written
@@ -96,6 +101,13 @@ constexpr int kFusedEdges = 2;     // edges a lane a step
 constexpr int kScatterUpdates = 4; // updates a lane a step
 constexpr int kHot = 8;            // lanes on one target that make a slot hot
 constexpr unsigned kFull = 0xffffffffu;
+
+// The loop's done word, or 0 where the caller passes none.  No kernel
+// writes it while a sweep runs, so the read-only path may cache it: after
+// the first warp of an SM the read is an L1 hit.
+__device__ __forceinline__ int done_word(const int* done) {
+  return done != nullptr ? __ldg(done) : 0;
+}
 
 __device__ __forceinline__ bool outside(int id, int64_t n) {
   return id < 0 || (int64_t)id >= n;
@@ -182,11 +194,12 @@ __global__ void __launch_bounds__(kThreads, 8)
 fused_relax_kernel(const int* __restrict__ L_in, int* __restrict__ L_out,
                    const int* __restrict__ src, const int* __restrict__ dst,
                    int64_t m, int64_t n, int* err,
-                   unsigned long long* counter) {
+                   unsigned long long* counter, const int* done) {
   constexpr int E = kFusedEdges;
   const int64_t e0 = ((int64_t)blockIdx.x * kWarps + threadIdx.x / 32) *
                          (32 * E) +
                      (threadIdx.x & 31);
+  if (done_word(done)) return;
   // every load of the lane before any check (a check may store to err,
   // which would hold back the loads after it)
   int s[E], d[E];
@@ -250,11 +263,12 @@ scatter_min_kernel(const int* __restrict__ L_in, int* __restrict__ L_out,
                    const int* __restrict__ targets,
                    const int* __restrict__ values,
                    const uint8_t* __restrict__ valid, int64_t k, int64_t n,
-                   int* err, unsigned long long* counter) {
+                   int* err, unsigned long long* counter, const int* done) {
   constexpr int E = kScatterUpdates;
   const int64_t e0 = ((int64_t)blockIdx.x * kWarps + threadIdx.x / 32) *
                          (32 * E) +
                      (threadIdx.x & 31);
+  if (done_word(done)) return;
   // every load of the lane before any check, as in fused_relax
   int t[E], v[E];
   bool ok[E];
@@ -300,11 +314,12 @@ extern "C" {
 
 // Edges e >= m are not visited: the wrapper passes m = min(m, edge_limit).
 // src and dst are 4-byte aligned.  n is the length of L_in and L_out; err
-// (one int32, zeroed by the caller) and counter (four int64, zeroed by the
-// caller) may be null.
+// (one int32, zeroed by the caller), counter (four int64, zeroed by the
+// caller) and done (the loop's int32 flag) may be null.
 int contour_fused_relax(const void* L_in, void* L_out, const void* src,
-                        const void* dst, int64_t m, void* counter, int64_t n,
-                        void* err, void* stream) {
+                        const void* dst, int64_t m, void* counter,
+                        const void* done, int64_t n, void* err,
+                        void* stream) {
   if (m <= 0) return (int)cudaSuccess;
   if ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
       3)
@@ -313,14 +328,15 @@ int contour_fused_relax(const void* L_in, void* L_out, const void* src,
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   fused_relax_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)L_in, (int*)L_out, (const int*)src, (const int*)dst, m, n,
-      (int*)err, (unsigned long long*)counter);
+      (int*)err, (unsigned long long*)counter, (const int*)done);
   return (int)cudaGetLastError();
 }
 
 // valid may be null (every update live); the rest as above.
 int contour_scatter_min(const void* L_in, void* L_out, const void* targets,
                         const void* values, const void* valid, int64_t k,
-                        void* counter, int64_t n, void* err, void* stream) {
+                        void* counter, const void* done, int64_t n, void* err,
+                        void* stream) {
   if (k <= 0) return (int)cudaSuccess;
   if ((reinterpret_cast<uintptr_t>(targets) |
        reinterpret_cast<uintptr_t>(values)) &
@@ -330,7 +346,8 @@ int contour_scatter_min(const void* L_in, void* L_out, const void* targets,
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   scatter_min_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)L_in, (int*)L_out, (const int*)targets, (const int*)values,
-      (const uint8_t*)valid, k, n, (int*)err, (unsigned long long*)counter);
+      (const uint8_t*)valid, k, n, (int*)err, (unsigned long long*)counter,
+      (const int*)done);
   return (int)cudaGetLastError();
 }
 

@@ -83,6 +83,10 @@
 // that condition in place of a branch before them; where it fails, nothing
 // is stored and the edge runs the spec through shared memory (slow_edge).
 //
+// A launch whose done word (the fixpoint loop's flag, converged.cu) is set
+// returns at once, as the sweeps of contour_mm.cu do: L is the wrapper's
+// copy of the caller's labels, so it stays as it was.
+//
 // Index ranges are checked as in contour_mm.cu: every id the kernel follows
 // (w, v, L[w], L[v]) is compared with n before use.  An edge with an id
 // outside [0, n) is skipped and, when the caller passes an error word, the
@@ -301,7 +305,9 @@ template <bool kCount>
 __global__ void __launch_bounds__(kLanes*(1 + kMaxProducers))
 mm2_kernel(int* L, const int* __restrict__ src, const int* __restrict__ dst,
            int64_t m, int window, int depth, int cache_slots, int producers,
-           unsigned long long* counts, int n, int* err) {
+           unsigned long long* counts, int n, int* err, const int* done) {
+  // done is not written during a sweep, so every thread reads one value
+  if (done != nullptr && __ldg(done)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   int4* cache = reinterpret_cast<int4*>(smem);
   int4* ring_e = cache + cache_slots;
@@ -440,7 +446,7 @@ size_t smem_bytes(int64_t window, int64_t depth, int64_t cache_slots) {
 template <bool kCount>
 int launch(int* L, const int* src, const int* dst, int64_t m, int window,
            int depth, int cache_slots, unsigned long long* counts, int n,
-           int* err, cudaStream_t stream, size_t smem) {
+           int* err, const int* done, cudaStream_t stream, size_t smem) {
   const cudaError_t rc = cudaFuncSetAttribute(
       mm2_kernel<kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -450,7 +456,8 @@ int launch(int* L, const int* src, const int* dst, int64_t m, int window,
   }
   const int producers = depth < kMaxProducers ? depth : kMaxProducers;
   mm2_kernel<kCount><<<1, kLanes * (1 + producers), smem, stream>>>(
-      L, src, dst, m, window, depth, cache_slots, producers, counts, n, err);
+      L, src, dst, m, window, depth, cache_slots, producers, counts, n, err,
+      done);
   return (int)cudaGetLastError();
 }
 
@@ -461,11 +468,12 @@ extern "C" {
 // Sweeps edges [0, m) in order over L (length n), in place: the wrapper
 // passes m = min(m, edge_limit) and a copy of the caller's labels.  window
 // and depth >= 1; cache_slots a power of two; the three must fit the CTA's
-// shared memory.  counts (three uint64, null on the solve path) and err
-// (one int32, zeroed by the caller) may be null.
+// shared memory.  counts (three uint64, null on the solve path), done (the
+// loop's int32 flag) and err (one int32, zeroed by the caller) may be null.
 int contour_mm2(void* L, const void* src, const void* dst, int64_t m,
                 int64_t window, int64_t depth, int64_t cache_slots,
-                void* counts, int64_t n, void* err, void* stream) {
+                void* counts, const void* done, int64_t n, void* err,
+                void* stream) {
   if (m <= 0) return (int)cudaSuccess;
   if (window < 1 || depth < 1 || cache_slots < 1 ||
       (cache_slots & (cache_slots - 1)) != 0 || window > (1 << 20) ||
@@ -477,10 +485,11 @@ int contour_mm2(void* L, const void* src, const void* dst, int64_t m,
     return launch<true>((int*)L, (const int*)src, (const int*)dst, m,
                         (int)window, (int)depth, (int)cache_slots,
                         (unsigned long long*)counts, (int)n, (int*)err,
-                        (cudaStream_t)stream, smem);
+                        (const int*)done, (cudaStream_t)stream, smem);
   return launch<false>((int*)L, (const int*)src, (const int*)dst, m,
                        (int)window, (int)depth, (int)cache_slots, nullptr,
-                       (int)n, (int*)err, (cudaStream_t)stream, smem);
+                       (int)n, (int*)err, (const int*)done,
+                       (cudaStream_t)stream, smem);
 }
 
 }  // extern "C"

@@ -59,7 +59,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.contour_mm.blocked import (check_int32, edge_count,
+from repro_torch.kernels.contour_mm.blocked import (check_done, check_int32,
+                                                    edge_count, frozen,
                                                     launch, on_cuda)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -81,16 +82,19 @@ def load_library() -> ctypes.CDLL:
     """Build (on first use) and load ``libcontour_mm2``; declare its API."""
     lib = _build.load_library(LIBRARY, SOURCES)
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.contour_mm2.argtypes = [p, p, p, i64, i64, i64, i64, p, i64, p, p]
+    lib.contour_mm2.argtypes = [p, p, p, i64, i64, i64, i64, p, p, i64, p,
+                                p]
     lib.contour_mm2.restype = ctypes.c_int
     return lib
 
 
 def mm2_plain(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-              edge_limit=None) -> torch.Tensor:
+              edge_limit=None, done=None) -> torch.Tensor:
     """Plain version of :func:`mm2`: ``mm_block_ref`` over the first
     ``edge_limit`` edges, raising IndexError where the kernel would meet
-    an id outside ``[0, n)``."""
+    an id outside ``[0, n)``; a copy of ``L`` where ``done`` is set."""
+    if frozen(done):
+        return L.clone()
     n = int(L.shape[0])
     m = edge_count(int(src.shape[0]), edge_limit)
     lab = L.tolist()
@@ -218,7 +222,7 @@ def mm2_pipelined_replay(L: torch.Tensor, src: torch.Tensor,
 def sweep(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
           edge_limit=None, *, window: int = WINDOW, depth: int = DEPTH,
           cache_slots: int = CACHE_SLOTS, check: bool = True,
-          counts: bool = False):
+          counts: bool = False, done=None):
     """Launch the kernel once on CUDA tensors at the given sizes; returns
     the new labels, and with ``counts`` also the counts of
     :data:`COUNTERS` (which waits for the kernel).  :func:`mm2` is this
@@ -228,6 +232,7 @@ def sweep(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         raise ValueError("mm2's kernel takes CUDA tensors; mm2() runs the "
                          "plain version on CPU tensors")
     check_sizes(window, depth, cache_slots)
+    done_ptr = check_done(done, L.device)
     src, dst = src.contiguous(), dst.contiguous()
     m = edge_count(int(src.shape[0]), edge_limit)
     out = L.clone(memory_format=torch.contiguous_format)
@@ -236,7 +241,7 @@ def sweep(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         lib = load_library()
         launch(lib.contour_mm2, out.data_ptr(), src.data_ptr(),
                dst.data_ptr(), m, window, depth, cache_slots,
-               tally.data_ptr() if counts else None, wrapper=mm2,
+               tally.data_ptr() if counts else None, done_ptr, wrapper=mm2,
                check=check, what=_IDS, L=out)
     if counts:
         return out, dict(zip(COUNTERS, tally.tolist()))
@@ -244,7 +249,7 @@ def sweep(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 
 def mm2(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-        edge_limit=None, *, check: bool = True) -> torch.Tensor:
+        edge_limit=None, *, check: bool = True, done=None) -> torch.Tensor:
     """One asynchronous order-2 sweep in edge order; returns new labels.
 
     Edges at positions ``>= edge_limit`` (a Python int or 0-d tensor)
@@ -253,12 +258,14 @@ def mm2(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     ``L[0] == 0``) such a self-loop is a no-op, and the two agree.  An
     endpoint, or a label at one, outside ``[0, len(L))`` raises
     IndexError; on the card, ``check=False`` skips such an edge instead
-    and does not wait for the kernel.  ``L`` is not modified.
+    and does not wait for the kernel.  ``L`` is not modified.  With
+    ``done`` (the loop's flag word, as for ``blocked.fused_relax``) set it
+    returns a copy of ``L``.
     """
     check_inputs(L, src, dst)
     if not on_cuda(L):
-        return mm2_plain(L, src, dst, edge_limit)
-    return sweep(L, src, dst, edge_limit, check=check)
+        return mm2_plain(L, src, dst, edge_limit, done)
+    return sweep(L, src, dst, edge_limit, check=check, done=done)
 
 
 mm2.launches = 0

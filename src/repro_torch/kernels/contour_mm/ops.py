@@ -18,9 +18,9 @@ backends realise the sweep:
 tensors the kernel wrappers run their plain versions.
 
 :func:`contour_cc_fixpoint` is ``contour.contour_labels`` with the
-literal ``C-<order>`` variant: a host loop with one device-to-host read
-of the convergence flag per iteration (the reference keeps the flag on
-the device inside a ``lax.while_loop``).
+literal ``C-<order>`` variant: its loop keeps the convergence flag and
+the iteration count on the device, as the reference's ``lax.while_loop``
+does, and the host reads them once per ``converged.CHUNK`` iterations.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ def mm_relax_backend(
     backend: str = "auto",
     edge_limit=None,
     fuse: bool = True,
+    done=None,
 ) -> torch.Tensor:
     """One ``MM^order`` sweep on the chosen backend; returns new labels.
 
@@ -55,6 +56,12 @@ def mm_relax_backend(
     drops their updates.  ``fuse=False`` sends an order-2 ``cuda`` sweep
     through the scatter-min kernel instead of the fused one; it does not
     apply to ``cuda_async``, which is order 2 only.
+
+    ``done`` is the dense fixpoint loop's flag word (``converged.py``):
+    the kernels, and the plain versions they stand for on CPU tensors,
+    return a copy of ``L`` once it is set.  The ``torch`` backend sweeps
+    regardless: past the loop's early-convergence point a sweep changes
+    nothing.
 
     The kernels are launched with ``check=False``: the graph's endpoints
     were checked when the ``Graph`` was built, and a sweep keeps labels in
@@ -69,7 +76,8 @@ def mm_relax_backend(
             raise ValueError(
                 "the in-order 'cuda_async' kernel is 2-order only; use "
                 "'cuda' or 'torch' for order != 2")
-        return mm2(L, src, dst, edge_limit=edge_limit, check=False)
+        return mm2(L, src, dst, edge_limit=edge_limit, check=False,
+                   done=done)
     if backend == "torch":
         if edge_limit is not None:
             # self-loops at vertex 0 are min-mapping no-ops
@@ -80,23 +88,25 @@ def mm_relax_backend(
         return lab.mm_relax(L, src, dst, order)
     # cuda ("auto" is cuda)
     if fuse and order == 2:
-        return fused_relax(L, src, dst, edge_limit=edge_limit, check=False)
+        return fused_relax(L, src, dst, edge_limit=edge_limit, check=False,
+                           done=done)
     if edge_limit is not None:
         # the edges past the bound make no updates at all
         k = edge_count(int(src.shape[0]), edge_limit)
         src, dst = src[:k], dst[:k]
     t, v = lab.mm_update_stream(L, src, dst, order)
-    return scatter_min(L, t, v, check=False)
+    return scatter_min(L, t, v, check=False, done=done)
 
 
-def edges_visited(it: int, m: int, device) -> torch.Tensor:
-    """The dense schedule's work counter: float32 ``it`` times ``m``.
+def edges_visited(it, m: int, device) -> torch.Tensor:
+    """The dense schedule's work counter: float32 ``it`` (an int or a 0-d
+    tensor) times ``m``.
 
     A float32 multiply, as the reference's ``it.astype(float32) * m``: it
     rounds differently from an exact integer product cast afterwards once
     ``it * m`` passes ``2**24``.
     """
-    return torch.tensor(it, dtype=torch.float32, device=device) * m
+    return torch.as_tensor(it, device=device).to(torch.float32) * m
 
 
 def contour_mm_step(

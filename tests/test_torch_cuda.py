@@ -368,6 +368,212 @@ def test_frontier_on_the_card_matches_the_torch_backend(cuda, strategy):
     assert "schedule=staged" in res.provenance[0]
 
 
+# ---------------------------------------------------------------------------
+# the fixpoint loop on the card: converged_early and labels_unchanged (K6),
+# pointer_jump (K7), the done word of the sweeps, the baseline families
+# ---------------------------------------------------------------------------
+
+
+def _converged_cases(d):
+    """(name, L, src, dst) on which the predicate is pushed: a fixed point
+    (no witness), one witness first or last among 200k edges (one edge
+    between two components, or a label one hop from its root), every edge
+    a witness, and a star at identity labels and at its fixed point."""
+    g = gen.components_mix([gen.rmat(14, 8, seed=7, device="cpu"),
+                            gen.grid2d(150, 200, device="cpu")], seed=9,
+                           device="cpu")
+    s, t, n = g.to_numpy()
+    fixed = connected_components_oracle(s, t, n)
+    other = int(np.flatnonzero(fixed != fixed[s[0]])[0])
+    chain = fixed.copy()
+    root = int(fixed[s[-1]])
+    member = int(np.flatnonzero((fixed == root) & (np.arange(n) != root))[0])
+    chain[s[-1]] = member if s[-1] != member else root
+    chain[member] = root
+
+    def on(*arrays):
+        return [torch.as_tensor(np.asarray(a, np.int32), device=d)
+                for a in arrays]
+
+    first = t.copy()
+    first[0] = other                      # edge 0 joins two components
+    star = gen.star(70000, seed=3, device="cpu")
+    ss, st, sn = star.to_numpy()
+    return [
+        ("fixed", *on(fixed, s, t)),
+        ("witness_first", *on(fixed, s, first)),
+        ("witness_last", *on(chain, s, t)),
+        ("all_bad", *on(np.arange(n), s, t)),
+        ("star_identity", *on(np.arange(sn), ss, st)),
+        ("star_fixed", *on(connected_components_oracle(ss, st, sn), ss, st)),
+    ]
+
+
+def test_converged_early_matches_plain_on_the_card(cuda):
+    """K6 against its plain version at edge limits None, 0, 1, 31, 33, 200
+    and m // 2 on the adversarial cases; with a loop state, one test sets
+    it = 1 and done = the flag, and a second does nothing."""
+    from repro_torch.kernels.contour_mm import converged as cv
+    cv.converged_early.launches = 0
+    checks = 0
+    for name, L, src, dst in _converged_cases(cuda):
+        m = int(src.shape[0])
+        for limit in (None, 0, 1, 31, 33, 200, m // 2, m - 1):
+            want = bool(cv.converged_early_plain(L, src, dst, limit))
+            assert bool(cv.converged_early(L, src, dst, limit)) == want, \
+                (name, limit)
+            state = cv.loop_state(cuda)
+            cv.converged_early(L, src, dst, limit, state=state)
+            assert state.tolist() == [int(want), 1, 0, 0], (name, limit)
+            cv.converged_early(L, src, dst, limit, state=state)
+            assert state.tolist() == [int(want), 1 + (not want), 0, 0]
+            checks += 1
+        if name == "witness_first":
+            assert not bool(cv.converged_early(L, src, dst))
+        if name == "star_fixed":
+            assert bool(cv.converged_early(L, src, dst))
+    torch.cuda.synchronize()
+    assert cv.converged_early.launches > 0 and checks == 6 * 8
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1_000_003])
+def test_labels_unchanged_matches_plain_on_the_card(cuda, n):
+    """``all(a == b)`` with no difference, one first, one last, every
+    element different, and a slice not on a 16-byte boundary."""
+    from repro_torch.kernels.contour_mm import converged as cv
+    a = torch.arange(n + 1, dtype=torch.int32, device=cuda)
+    cases = [(a[:n], a[:n].clone()), (a[1:], a[1:].clone())]
+    if n:
+        for pos in (0, n - 1):
+            b = a[:n].clone()
+            b[pos] += 1
+            cases.append((a[:n], b))
+        cases.append((a[:n], a[:n] + 1))
+    for x, y in cases:
+        want = bool(cv.labels_unchanged_plain(x, y))
+        assert bool(cv.labels_unchanged(x, y)) == want
+        state = cv.loop_state(cuda)
+        cv.labels_unchanged(x, y, state=state)
+        assert state.tolist() == [int(want), 1, 0, 0]
+
+
+def test_pointer_jump_matches_plain_on_the_card(cuda):
+    """K7 equals ``min(L, L[L])`` out of place on chains, and with the done
+    word set returns a copy of its input."""
+    from repro_torch.kernels.contour_mm import converged as cv
+    rng = np.random.default_rng(0)
+    for n in (1, 31, 1025, 300_001):
+        parent = np.minimum(np.arange(n), rng.integers(0, n, n))
+        L = torch.as_tensor(parent.astype(np.int32), device=cuda)
+        for done in (None, 0, 1):
+            word = (None if done is None else
+                    torch.tensor([done], dtype=torch.int32, device=cuda))
+            got = cv.pointer_jump(L, word)
+            want = L if done else torch.minimum(L, L[L])
+            assert torch.equal(got, want)
+            assert torch.equal(cv.pointer_jump_plain(L, word), want)
+            assert got.data_ptr() != L.data_ptr()
+        assert torch.equal(minmap.pointer_jump(L, rounds=3),
+                           cv.pointer_jump(cv.pointer_jump(
+                               cv.pointer_jump(L))))
+
+
+def test_sweeps_with_the_done_word_set_leave_the_labels(cuda):
+    """K1, K2 and K3 with ``done`` set return their input labels; with it
+    clear, their plain versions' labels."""
+    g = gen.rmat(12, seed=2, device=cuda)
+    L = _states(g, count=1)[1]
+    t, v = minmap.mm_update_stream(L, g.src, g.dst, 1)
+    for done in (0, 1):
+        word = torch.tensor([done], dtype=torch.int32, device=cuda)
+        for got, plain in (
+                (blocked.fused_relax(L, g.src, g.dst, done=word),
+                 blocked.fused_relax_plain(L, g.src, g.dst)),
+                (blocked.scatter_min(L, t, v, done=word),
+                 blocked.scatter_min_plain(L, t, v)),
+                (kernel.mm2(L, g.src, g.dst, done=word),
+                 kernel.mm2_plain(L, g.src, g.dst))):
+            assert torch.equal(got, L if done else plain)
+            assert not torch.equal(plain, L)
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("variant", ["C-2", "C-Syn", "C-m", "C-11mm"])
+def test_chunked_loop_on_the_card_matches_cpu(cuda, variant, chunk,
+                                              monkeypatch):
+    """The dense loop on the card, warm-started from labels whose vertices
+    off every edge hang on chains (which an unfrozen jump would shorten),
+    equals the same solve on CPU tensors in labels, iterations, converged
+    and edges_visited, with the launches the path makes."""
+    from repro_torch.kernels.contour_mm import converged as cv
+    monkeypatch.setattr(cv, "CHUNK", chunk)
+    g = gen.components_mix([gen.rmat(12, seed=2, device="cpu"),
+                            gen.path(2000, seed=1, device="cpu")], seed=3,
+                           device="cpu")
+    s, d, n = g.to_numpy()
+    extra = 64                             # vertices on no edge: a chain
+    cpu = gen.Graph.from_numpy(s, d, n + extra, device="cpu")
+    warm = np.arange(n + extra)
+    warm[n + 1:] = np.arange(n, n + extra - 1)
+    on_card = gen.Graph.from_numpy(s, d, n + extra, device=cuda)
+    contour_mm.reset_launch_counts()
+    res = solve(on_card, variant=variant, warm_start=warm)
+    want = solve(cpu, variant=variant, warm_start=warm)
+    for field in ("labels", "iterations", "converged", "edges_visited"):
+        assert torch.equal(getattr(res, field).cpu(), getattr(want, field))
+    test = (cv.labels_unchanged if variant == "C-Syn"
+            else cv.converged_early)
+    assert test.launches >= int(res.iterations)
+    if variant != "C-Syn":
+        assert cv.pointer_jump.launches > int(res.iterations)
+
+
+@pytest.mark.parametrize("options", [{}, {"variant": "C-Syn"},
+                                     {"sampling": 2, "compact_every": 2}])
+def test_torch_backend_launches_no_kernel(cuda, options):
+    """The ``torch`` backend on the card is plain torch, its fixpoint loop
+    included: it launches no kernel, and gives the ``cuda`` backend's
+    labels, iterations, converged and edges_visited."""
+    g = gen.components_mix([gen.rmat(12, seed=2, device="cpu"),
+                            gen.path(2000, seed=1, device="cpu")], seed=3,
+                           device=cuda)
+    contour_mm.reset_launch_counts()
+    plain = solve(g, backend="torch", **options)
+    assert all(k.launches == 0
+               for k in contour_mm.KERNELS + contour_mm.LOOP_KERNELS)
+    res = solve(g, backend="cuda", **options)
+    for field in ("labels", "iterations", "converged", "edges_visited"):
+        assert torch.equal(getattr(res, field), getattr(plain, field))
+
+
+@pytest.mark.parametrize("algorithm", ["fastsv", "lp", "connectit"])
+def test_baseline_families_on_the_card_match_cpu(cuda, algorithm):
+    """FastSV, label propagation and Rem on the card equal their solves on
+    CPU tensors and the oracle, cold, warm and under a budget; FastSV and
+    label propagation launch ``scatter_min`` and ``labels_unchanged``."""
+    from repro_torch.kernels.contour_mm import converged as cv
+    g = gen.components_mix([gen.rmat(12, seed=2, device="cpu"),
+                            gen.star(20000, seed=4, device="cpu"),
+                            gen.path(500, seed=1, device="cpu")], seed=3,
+                           device="cpu")
+    on_card = gen.Graph.from_numpy(*g.to_numpy(), device=cuda)
+    warm = solve(g, max_iters=1).labels.numpy()
+    for kw in ({}, {"warm_start": warm}, {"max_iters": 2}):
+        contour_mm.reset_launch_counts()
+        res = solve(on_card, algorithm=algorithm, **kw)
+        want = solve(g, algorithm=algorithm, **kw)
+        assert res.labels.device.type == "cuda"
+        for field in ("labels", "iterations", "converged"):
+            assert torch.equal(getattr(res, field).cpu(), getattr(want, field))
+        assert res.edges_visited is None
+        if algorithm != "connectit":
+            assert blocked.scatter_min.launches > 0
+            assert cv.labels_unchanged.launches > 0
+        if "max_iters" not in kw:
+            assert (res.labels.cpu().numpy()
+                    == connected_components_oracle(*g.to_numpy())).all()
+
+
 # (rows, d, x dtype, w dtype): 16-byte vectors staged in registers from one
 # to eight a thread, a row too wide for the stage (read twice), and widths
 # that are not whole vectors (scalar loads)

@@ -198,7 +198,7 @@ BAD_OPTIONS = [
     ({"sampling": -1}, ValueError, "sampling"),
     ({"compact_every": -2}, ValueError, "compact_every"),
     ({"variant": "C-7x"}, ValueError, "unknown variant"),
-    ({"algorithm": "fastsv"}, ValueError, "unknown algorithm"),
+    ({"algorithm": "oocore"}, ValueError, "unknown algorithm"),
     ({"sampling": 2, "variant": "C-Syn"}, ValueError, "C-Syn"),
     ({"compact_every": 4, "variant": "C-Syn"}, ValueError, "C-Syn"),
     ({"sampling_strategy": "nope"}, ValueError, "sampling_strategy"),
@@ -240,7 +240,8 @@ def test_other_solve_errors():
         repro_torch.solve(g, warm_start=np.full(g.n_vertices, -1))
     with pytest.raises(ValueError, match="1-D"):
         repro_torch.solve(g, warm_start=np.zeros((2, 2), np.int32))
-    assert repro_torch.list_solvers() == ("contour",)
+    assert repro_torch.list_solvers() == ("contour", "fastsv",
+                                          "label_propagation", "union_find")
 
 
 @pytest.mark.parametrize("it", [1, 3, 7, 29, 100])
