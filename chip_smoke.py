@@ -21,7 +21,10 @@ against scipy's connected components:
   for the warp combine (``contour_hopper``), and timed in four label
   states of each main-path graph; after it, ``converged_early``,
   ``labels_unchanged`` and ``pointer_jump`` are held against their plain
-  versions in the same states and at the solve's fixed point, and the
+  versions in the same states and at the solve's fixed point (the
+  predicate there also timed right after a jump round, as the loop
+  meets it, after an L2 flush, and on a pass whose one witness is at
+  its end), and the
   warm solve is timed at several chunk sizes and traced with
   ``torch.profiler`` for the card's idle share;
 * the asynchronous path, ``solve(g, backend="cuda_async")`` on the
@@ -1026,19 +1029,45 @@ def drive_frontier(g, name: str, strategy: str,
     return out
 
 
+def witness_at_the_end(g, fixed):
+    """Labels that fail the predicate on one vertex only, a label one hop
+    from its root (as ``tests/test_torch_cuda.py``'s ``witness_last``):
+    the vertex that first appears latest in the edge list, among those of
+    components of three or more vertices.  Returns the labels and the
+    index of the first edge that is a witness."""
+    m, n = g.n_edges, g.n_vertices
+    edge = torch.arange(m, device=g.device)
+    first = torch.full((n,), m, dtype=torch.long, device=g.device)
+    first.scatter_reduce_(0, g.src.long(), edge, "amin")
+    first.scatter_reduce_(0, g.dst.long(), edge, "amin")
+    size = torch.bincount(fixed.long(), minlength=n)[fixed.long()]
+    v = int(torch.where(size >= 3, first, -1).argmax())
+    root = int(fixed[v])
+    ids = torch.arange(n, device=g.device)
+    u = int(torch.nonzero((fixed == root) & (ids != root) & (ids != v))[0])
+    L = fixed.clone()
+    L[v] = u
+    return L, int(first[v])
+
+
 def phase_converged(full: dict) -> dict:
     """K6 (``converged_early``, ``labels_unchanged``) against its plain
     versions on the card, at the main path's shapes.
 
     ``full`` maps names to (graph, its C-2 solve's labels), rmat first.
     On each graph, the four C-2 label states and the solve's fixed point:
-    the predicate's flag over every edge and over the frontier's prefix
-    limits (the sampling prefix m // 4, and m // 2) must equal the plain
-    version's; the no-change test's flag on each state against the next
-    (changed) and against a copy of itself (unchanged, a full pass) too.
-    Times: the kernel with the loop's step (a fresh state before each
-    call, untimed) against the plain version, per state; the kernels
-    line's are the fixed point of the first graph, the full pass."""
+    the predicate's flag over every edge, over the frontier's prefix
+    limits (the sampling prefix m // 4, and m // 2) and m - 1 (a tail of
+    m % 4 edges), and on ``src[1:]``, ``dst[1:]`` (not 16-byte aligned:
+    the scalar kernel) must equal the plain version's; the no-change
+    test's flag on each state against the next (changed) and against a
+    copy of itself (unchanged, a full pass) too.  Times: the kernel with
+    the loop's step (a fresh state before each call, untimed) against the
+    plain version, per state; at the fixed point also right after a
+    ``pointer_jump`` of the same labels (the labels as the loop's test
+    meets them, which the kernels line quotes) and after an L2 flush; and
+    on the first graph a full pass whose only witness is at its end
+    (:func:`witness_at_the_end`)."""
     mismatches, checks, rows = [], 0, {}
     first = None
     for name, (g, fixed) in full.items():
@@ -1048,12 +1077,17 @@ def phase_converged(full: dict) -> dict:
         per = []
         for i, L in enumerate(states):
             label = i if i < 4 else "fixed"
-            for limit in (None, fr.sample_prefix_m(m), m // 2):
+            for limit in (None, fr.sample_prefix_m(m), m // 2, m - 1):
                 got = bool(cv.converged_early(L, g.src, g.dst, limit))
                 want = bool(cv.converged_early_plain(L, g.src, g.dst, limit))
                 if got != want:
                     mismatches.append(("converged_early", name, label, limit))
                 checks += 1
+            if (bool(cv.converged_early(L, g.src[1:], g.dst[1:]))
+                    != bool(cv.converged_early_plain(L, g.src[1:],
+                                                     g.dst[1:]))):
+                mismatches.append(("converged_early", name, label, "[1:]"))
+            checks += 1
             same = L.clone()
             nxt = states[i + 1] if i + 1 < len(states) else L.flip(0)
             for b in (same, nxt):
@@ -1082,13 +1116,53 @@ def phase_converged(full: dict) -> dict:
         if per[-1]["converged"] is not True:
             raise AssertionError(f"{name}: the solve's labels fail the "
                                  "predicate")
+        # the fixed point as the loop's test meets it: just written by a
+        # jump round (a no-op there), and after an L2 flush
+        jumped = [fixed]
+
+        def after_jump():
+            jumped[0] = cv.pointer_jump(fixed)
+            state.zero_()
+
+        per[-1]["converged_early_after_jump_ms"] = time_each_ms(
+            lambda: cv.converged_early(jumped[0], g.src, g.dst, state=state),
+            setup=after_jump)
+        if not torch.equal(jumped[0], fixed):
+            raise AssertionError(f"{name}: a jump round moves the fixed "
+                                 "point")
+        per[-1]["converged_early_flushed_ms"] = time_each_ms(
+            lambda: cv.converged_early(fixed, g.src, g.dst, state=state),
+            setup=lambda: (flush_l2(), state.zero_()))
+        del jumped
+        if first is None:
+            late, edge = witness_at_the_end(g, fixed)
+            if (bool(cv.converged_early(late, g.src, g.dst))
+                    or bool(cv.converged_early_plain(late, g.src, g.dst))):
+                raise AssertionError(f"{name}: a label one hop from its "
+                                     "root passes the predicate")
+            checks += 1
+            rows[f"{name} witness at edge {edge} of {m}"] = {
+                "first_witness_at": edge / m,
+                "converged_early_ms": time_each_ms(
+                    lambda: cv.converged_early(late, g.src, g.dst,
+                                               state=state),
+                    setup=state.zero_),
+                "flushed_ms": time_each_ms(
+                    lambda: cv.converged_early(late, g.src, g.dst,
+                                               state=state),
+                    setup=lambda: (flush_l2(), state.zero_()))}
+            del late
         rows[name] = per
         if first is None:
             fixed_copy = fixed.clone()
             first = {
                 "shape": {"n": n, "m": m, "state": "fixed point"},
                 "converged_early": {
-                    "ms": per[-1]["converged_early_ms"],
+                    "ms": per[-1]["converged_early_after_jump_ms"],
+                    "ms_setting": "fixed point, right after a pointer_jump "
+                                  "of the same labels, as in the loop",
+                    "warm_ms": per[-1]["converged_early_ms"],
+                    "flushed_ms": per[-1]["converged_early_flushed_ms"],
                     "plain_ms": per[-1]["plain_ms"],
                     # read src, dst (8m) and the labels once (4n); per edge
                     # three compares
@@ -1106,9 +1180,9 @@ def phase_converged(full: dict) -> dict:
         raise AssertionError(f"K6 differs from its plain version: "
                              f"{mismatches}")
     emit({"phase": "converged_vs_plain", "checks": checks,
-          "states": rows, "bounds": {name: first[name]["bound_ms"]
-                                     for name in ("converged_early",
-                                                  "labels_unchanged")}})
+          "states": rows,
+          "bounds": {name: first[name]["bound_ms"]
+                     for name in ("converged_early", "labels_unchanged")}})
     out = {}
     for name in ("converged_early", "labels_unchanged"):
         out[name] = {"name": name, "route": "cuda",
@@ -1116,7 +1190,7 @@ def phase_converged(full: dict) -> dict:
                      "replaces": REPLACES[name], "max_abs_err": 0,
                      "library_ms": None, "shape": first["shape"],
                      "ms_by_state": {g: [r[f"{name}_ms"] for r in rows[g]]
-                                     for g in rows},
+                                     for g in rows if g in full},
                      **first[name]}
     return out
 

@@ -22,35 +22,63 @@
 // step == 0 the test only sets bad (the caller zeroed the words) and the
 // result is bad == 0.
 //
-// converged_kernel  the paper's early-convergence predicate (section
-//                   III-B2): edge e < m, (w, v) = (src[e], dst[e]), is a
-//                   witness unless L[w] == L[v], L[w] == L[L[w]] and
-//                   L[v] == L[L[v]].  Where L[w] == L[v] the last two are
-//                   one test, so an edge needs L[L[w]] only then.
-// unchanged_kernel  all(a == b) over two n-arrays: the no-change test of
-//                   C-Syn, FastSV and label propagation.
-// jump_kernel       one synchronous pointer-jump round, out of place:
-//                   out[v] = done ? L[v] : min(L[v], L[L[v]]).  Out of
-//                   place so that it stays the reference's round (a jump
-//                   in place compresses further).
+// The kernels:
+//   converged_vec_kernel  the paper's early-convergence predicate (section
+//       III-B2; repro/connectivity/minmap.py:88 converged_early): edge
+//       e < m, (w, v) = (src[e], dst[e]), is a witness unless L[w] == L[v],
+//       L[w] == L[L[w]] and L[v] == L[L[v]] (where L[w] == L[v] the last
+//       two are one test).  src and dst 16-byte aligned.
+//   converged_kernel  the same predicate where src or dst is not 16-byte
+//       aligned (a view): 4-byte loads, 4 edges a lane 32 apart.
+//   unchanged_kernel  all(a == b) over two n-arrays: the no-change test of
+//       C-Syn, FastSV and label propagation.
+//   jump_kernel  one synchronous pointer-jump round, out of place:
+//       out[v] = done ? L[v] : min(L[v], L[L[v]]).  Out of place so that it
+//       stays the reference's round (a jump in place compresses further).
 //
-// What bounds them on an H100 (3.35 TB/s HBM): bytes.  The tests read
-// each input once at the fixed point (8m + 4n bytes for the predicate, 8n
-// for the no-change test) and compute nothing to speak of; in every
-// iteration before the last a witness turns up in the first edges, so a
-// test that stops there costs about a launch.  The design:
-//   * a persistent grid (kBlocksPerSM blocks of kThreads threads an SM),
-//     each warp walking steps of 32 * E consecutive items, lane l items
-//     l, l + 32, ...: 128 contiguous bytes a load of a stream (evict-first,
-//     the streams are read once), every stream load of a step issued
-//     before the gathers that need them;
-//   * the early exit: each warp re-reads bad and its block's witness mark
-//     (shared memory) through volatile loads at every step (issued with
-//     the step's stream loads, so they cost no round trip of their own),
-//     and stops once either is set; a warp that finds a witness sets the
-//     mark and stops, and the block stores bad once, at its end (a store
-//     from every lane, or every warp, of the first wave queues at one L2
-//     slice, which took 0.03-0.09 ms a test on an H100, PERF.md);
+// What bounds the predicate on an H100: in a live iteration, a launch (a
+// witness turns up in the first step of almost every warp); at the fixed
+// point, a full pass over the edges, whose byte bound is 8m + 4n at 3.35
+// TB/s (rmat(22,16) 0.158 ms, delaunay_like(24) 0.140) but which the label
+// gathers hold far above it.  The canonical edges are sorted by w, so
+// L[w] is nearly a stream; L[v] is one random 4-byte read an edge, and
+// each costs the SM a 32-byte sector and a line of L1's tag throughput.
+// Measured side by side on an H100 (tools/converged_variants.py, PERF.md
+// section 6), at rmat(22,16)'s fixed point right after a jump round: the
+// streams alone take 0.17 ms, the streams and the two first-level gathers
+// 0.52 (the gather floor), this kernel 0.536 and the 4-byte kernel
+// (converged_kernel) 0.539.  So on a power-law graph the floor is the
+// rate at which the SMs take random sectors, not HBM, and no reordering
+// of the same reads (16-byte stream loads, 4-16 edges a lane, every
+// gather of a step before any compare, the root read once a label) moves
+// it by more than 2%.  An L2 policy (labels evict_last through
+// ld.global.nc.L2::cache_hint, streams evict_first and L1::no_allocate)
+// gained nothing on rmat, whose 16.8 MB of labels stay in L2 anyway, and
+// cost 13% on delaunay_like(24), whose 67 MB do not fit; the L1 carveout
+// at its maximum and a plain store of K7's output (in place of __stcs)
+// moved nothing.  None ships.  Only fewer sectors move the floor: the
+// labels of rmat's 16384 most frequent destinations (38% of the L[v]
+// reads) from shared memory took the pass to 0.42 ms, but a table made
+// on the host costs 3.5 ms a graph to build, and one that each block
+// fills itself (0.45 ms on rmat) takes 128 KB of shared memory, one block
+// an SM, and made delaunay_like(24) 40% slower.  Neither ships.  What
+// ships is what the mesh gains from (delaunay 0.185 ms, 0.207 for
+// converged_kernel; live tests 2-16% faster):
+//   * 16-byte stream loads (evict-first: read once), 4 consecutive edges
+//     a lane a step, a persistent grid of 1024-thread blocks, two an SM
+//     (256-thread blocks: 1-6% slower); an edge whose w repeats the edge
+//     before reuses its L[w]; a lane reads L[L[w]] only for a label other
+//     than the last it checked (a lane of the giant component checks its
+//     root once);
+//   * the early exit: each warp reads bad and its block's witness mark at
+//     every step (issued with the step's stream loads; every 4 steps
+//     doubled the test at rmat's state 2, where witnesses are sparse) and
+//     stops once either is set; a warp that finds a witness sets the mark
+//     and stops, and the block stores bad once, at its end (a store from
+//     every lane, or every warp, of the first wave queues at one L2 slice,
+//     which took 0.03-0.09 ms a test on an H100, PERF.md);
+//   * the m % 4 edges past the last whole vector are tested by the first
+//     warp of block 0;
 //   * the no-change test reads 16 bytes a lane a load where both arrays
 //     are 16-byte aligned;
 //   * the loop's step in the last block to finish (a ticket taken after
@@ -62,11 +90,13 @@
 //     through the read-only path: no kernel writes it while another
 //     reads it (the step writes it at the end of a test, after every
 //     block of that test has read it).
-// Ids are compared with n before they are followed: on the card an id
-// outside [0, n) is never read through.  The tests count its edge as a
-// witness; the jump copies its label.  (The plain versions raise
-// IndexError.)  Each launcher returns the cudaGetLastError() code of its
-// launch (0 = cudaSuccess).
+// No launch sets a cache setting of its own (no persisting-L2 limit, no
+// access-policy window, no carveout).  Ids are compared with n before
+// they are followed: on the card an id outside [0, n) is never read
+// through.  The tests count
+// its edge as a witness; the jump copies its label.  (The plain versions
+// raise IndexError.)  Each launcher returns the cudaGetLastError() code
+// of its launch (0 = cudaSuccess).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,6 +111,8 @@ constexpr int kPairs = 2;    // 16-byte vectors a lane a step of the
                              // no-change test (four times as many
                              // 4-byte items where unaligned)
 constexpr int kJumps = 4;    // vertices a lane of the jump
+constexpr int kVecThreads = 1024;  // a block of the aligned predicate
+constexpr int kVecBlocksPerSM = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Word { kDone = 0, kIt = 1, kBad = 2, kTicket = 3 };
@@ -195,6 +227,104 @@ converged_kernel(const int* __restrict__ L, const int* __restrict__ src,
   finish(state, &mark, step);
 }
 
+// The predicate on 16-byte aligned edges.
+
+// One edge by itself (the m % 4 tail): whether it is a witness.
+__device__ __forceinline__ bool edge_witness(const int* __restrict__ L,
+                                             int w, int v, int64_t n) {
+  if (!inside(w, n) || !inside(v, n)) return true;
+  const int lw = __ldg(L + w), lv = __ldg(L + v);
+  return lw != lv || !inside(lw, n) || __ldg(L + lw) != lw;
+}
+
+// One step of a warp: lane l tests the 4 edges of vector `vec` (vectors
+// past `items` are no edges).  True where the warp stops: on a witness of
+// its own (its block then marked) or on bad or the block's mark.
+// `checked` is the last label whose root the lane checked.
+__device__ __forceinline__ bool vec_step(const int* __restrict__ L,
+                                         const int4* __restrict__ vs,
+                                         const int4* __restrict__ vd,
+                                         int64_t vec, int64_t items,
+                                         int64_t n, const int* bad,
+                                         int* mark, int& checked) {
+  const bool seen = witnessed(bad, mark);
+  const bool live = vec < items;
+  const int4 a = live ? __ldcs(vs + vec) : make_int4(0, 0, 0, 0);
+  const int4 b = live ? __ldcs(vd + vec) : make_int4(0, 0, 0, 0);
+  if (__any_sync(kFull, seen)) return true;
+  const int w[4] = {a.x, a.y, a.z, a.w};
+  const int v[4] = {b.x, b.y, b.z, b.w};
+  bool ok[4], need_w[4];
+  bool witness = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool in = inside(w[i], n) && inside(v[i], n);
+    witness |= live && !in;
+    ok[i] = live && in;
+  }
+  // every first-level gather of the step before any compare; an edge
+  // whose w repeats the edge before's reuses its L[w]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    need_w[i] = ok[i] && !(i > 0 && ok[i - 1] && w[i] == w[i - 1]);
+  int lw[4], lv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lw[i] = need_w[i] ? __ldg(L + w[i]) : 0;
+    lv[i] = ok[i] ? __ldg(L + v[i]) : 0;
+  }
+#pragma unroll
+  for (int i = 1; i < 4; ++i)
+    if (ok[i] && !need_w[i]) lw[i] = lw[i - 1];
+  // L[w] == L[v] leaves one test, L[L[w]] == L[w], asked once a label
+  int last = checked;
+  bool need_root[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    witness |= ok[i] && (lw[i] != lv[i] || !inside(lw[i], n));
+    ok[i] = ok[i] && lw[i] == lv[i] && inside(lw[i], n);
+    need_root[i] = ok[i] && lw[i] != last;
+    if (ok[i]) last = lw[i];
+  }
+  int root[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    root[i] = need_root[i] ? __ldg(L + lw[i]) : 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) witness |= need_root[i] && root[i] != lw[i];
+  // every label of a step without a witness had its root checked
+  checked = last;
+  if (!__any_sync(kFull, witness)) return false;
+  mark_witness(mark);
+  return true;
+}
+
+__global__ void __launch_bounds__(kVecThreads, kVecBlocksPerSM)
+converged_vec_kernel(const int* __restrict__ L, const int* __restrict__ src,
+                     const int* __restrict__ dst, int64_t m, int64_t n,
+                     int* state, int step) {
+  if (step && __ldg(state + kDone)) return;
+  __shared__ int mark;
+  clear_mark(&mark);
+  const int* bad = state + kBad;
+  const int lane = threadIdx.x & 31;
+  const int64_t items = m / 4;
+  if (blockIdx.x == 0 && threadIdx.x < 32) {
+    const int64_t e = items * 4 + lane;
+    if (__any_sync(kFull, e < m && edge_witness(L, src[e], dst[e], n)))
+      mark_witness(&mark);
+  }
+  const int4* vs = reinterpret_cast<const int4*>(src);
+  const int4* vd = reinterpret_cast<const int4*>(dst);
+  const int64_t stride = (int64_t)gridDim.x * kVecThreads;
+  int checked = -1;
+  bool stop = false;
+  for (int64_t vec = (int64_t)blockIdx.x * kVecThreads + threadIdx.x;
+       !stop && vec - lane < items; vec += stride)
+    stop = vec_step(L, vs, vd, vec, items, n, bad, &mark, checked);
+  finish(state, &mark, step);
+}
+
 // Whether x and y differ in any of their four lanes.
 __device__ __forceinline__ bool differ(const int4& x, const int4& y) {
   return x.x != y.x || x.y != y.y || x.z != y.z || x.w != y.w;
@@ -278,10 +408,7 @@ jump_kernel(const int* __restrict__ L, int* __restrict__ out, int64_t n,
   }
 }
 
-// A persistent grid over `items` items, E a lane a step: at most
-// kBlocksPerSM blocks an SM, at least one (the step needs a block even
-// with no item).
-int64_t test_blocks(int64_t items, int per_lane) {
+int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int device = 0;
@@ -290,10 +417,25 @@ int64_t test_blocks(int64_t items, int per_lane) {
                                device) != cudaSuccess)
       sms = 132;
   }
+  return sms;
+}
+
+// A persistent grid over `items` items, E a lane a step: at most
+// kBlocksPerSM blocks an SM, at least one (the step needs a block even
+// with no item).
+int64_t test_blocks(int64_t items, int per_lane) {
   const int64_t steps = (items + 32 * per_lane - 1) / (32 * per_lane);
   const int64_t blocks = (steps + kWarps - 1) / kWarps;
-  const int64_t most = (int64_t)sms * kBlocksPerSM;
+  const int64_t most = (int64_t)sm_count() * kBlocksPerSM;
   return blocks < 1 ? 1 : (blocks < most ? blocks : most);
+}
+
+// The aligned predicate: a persistent grid of kVecBlocksPerSM blocks an
+// SM, fewer where the vectors need fewer, at least one.
+int vec_blocks(int64_t m) {
+  const int64_t blocks = (m / 4 + kVecThreads - 1) / kVecThreads;
+  const int64_t most = (int64_t)sm_count() * kVecBlocksPerSM;
+  return (int)(blocks < 1 ? 1 : (blocks < most ? blocks : most));
 }
 
 }  // namespace
@@ -308,10 +450,18 @@ int contour_converged_early(const void* L, const void* src, const void* dst,
                             void* stream) {
   if (m < 0 || n < 0) return (int)cudaErrorInvalidValue;
   if (m == 0 && !step) return (int)cudaSuccess;
-  converged_kernel<<<(unsigned)test_blocks(m, kEdges), kThreads, 0,
-                     (cudaStream_t)stream>>>(
-      (const int*)L, (const int*)src, (const int*)dst, m, n, (int*)state,
-      step);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(src) |
+                         reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  if (aligned)
+    converged_vec_kernel<<<(unsigned)vec_blocks(m), kVecThreads, 0,
+                           (cudaStream_t)stream>>>(
+        (const int*)L, (const int*)src, (const int*)dst, m, n, (int*)state,
+        step);
+  else
+    converged_kernel<<<(unsigned)test_blocks(m, kEdges), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+        (const int*)L, (const int*)src, (const int*)dst, m, n, (int*)state,
+        step);
   return (int)cudaGetLastError();
 }
 

@@ -409,31 +409,119 @@ def _converged_cases(d):
     ]
 
 
+def _check_converged(cv, cuda, name, L, src, dst):
+    """K6 against its plain version at edge limits None, 0, 1, 31, 33, 200,
+    m // 2 and m - 1; with a loop state, one test sets it = 1 and done =
+    the flag, and a second does nothing.  Returns the checks made."""
+    m = int(src.shape[0])
+    for limit in (None, 0, 1, 31, 33, 200, m // 2, m - 1):
+        want = bool(cv.converged_early_plain(L, src, dst, limit))
+        assert bool(cv.converged_early(L, src, dst, limit)) == want, \
+            (name, limit)
+        state = cv.loop_state(cuda)
+        cv.converged_early(L, src, dst, limit, state=state)
+        assert state.tolist() == [int(want), 1, 0, 0], (name, limit)
+        cv.converged_early(L, src, dst, limit, state=state)
+        assert state.tolist() == [int(want), 1 + (not want), 0, 0]
+    return 8
+
+
 def test_converged_early_matches_plain_on_the_card(cuda):
-    """K6 against its plain version at edge limits None, 0, 1, 31, 33, 200
-    and m // 2 on the adversarial cases; with a loop state, one test sets
-    it = 1 and done = the flag, and a second does nothing."""
+    """K6 against its plain version at edge limits None, 0, 1, 31, 33, 200,
+    m // 2 and m - 1 on the adversarial cases; with a loop state, one test
+    sets it = 1 and done = the flag, and a second does nothing."""
     from repro_torch.kernels.contour_mm import converged as cv
     cv.converged_early.launches = 0
     checks = 0
     for name, L, src, dst in _converged_cases(cuda):
-        m = int(src.shape[0])
-        for limit in (None, 0, 1, 31, 33, 200, m // 2, m - 1):
-            want = bool(cv.converged_early_plain(L, src, dst, limit))
-            assert bool(cv.converged_early(L, src, dst, limit)) == want, \
-                (name, limit)
-            state = cv.loop_state(cuda)
-            cv.converged_early(L, src, dst, limit, state=state)
-            assert state.tolist() == [int(want), 1, 0, 0], (name, limit)
-            cv.converged_early(L, src, dst, limit, state=state)
-            assert state.tolist() == [int(want), 1 + (not want), 0, 0]
-            checks += 1
+        checks += _check_converged(cv, cuda, name, L, src, dst)
         if name == "witness_first":
             assert not bool(cv.converged_early(L, src, dst))
         if name == "star_fixed":
             assert bool(cv.converged_early(L, src, dst))
     torch.cuda.synchronize()
     assert cv.converged_early.launches > 0 and checks == 6 * 8
+
+
+def _tails_and_root_witnesses(d):
+    """(name, L, src, dst): the fixed point's first 4q + r edges (r = 1, 2,
+    3) with the last, in the tail past the last whole vector, joining two
+    components; and a star whose labels all name a vertex on no edge whose
+    own label is another (a witness by the root test alone, at the hub),
+    after a component at its fixed point."""
+    g = gen.components_mix([gen.rmat(12, 8, seed=3, device="cpu"),
+                            gen.grid2d(60, 70, device="cpu")], seed=4,
+                           device="cpu")
+    s, t, n = g.to_numpy()
+    fixed = connected_components_oracle(s, t, n)
+    out = []
+    for r in (1, 2, 3):
+        k = 4 * 2000 + r
+        tt = t[:k].copy()
+        tt[-1] = int(np.flatnonzero(fixed != fixed[s[k - 1]])[0])
+        out.append((f"tail_{r}", fixed, s[:k], tt))
+    # the star: hub n, leaves n + 1 ... n + 2999, half of its edges with
+    # the hub as v and half as w; every label names x
+    hub, x = n, n + 3000
+    leaves = n + np.arange(1, 3000)
+    ss = np.concatenate([s, leaves[:1500], np.full(1499, hub)])
+    tt = np.concatenate([t, np.full(1500, hub), leaves[1500:]])
+    L = np.concatenate([fixed, np.full(3000, x), [0]])   # L[x] = 0 != x
+    out.append(("root_only_at_hub", L, ss, tt))
+    return [(name, *(torch.as_tensor(np.asarray(a, np.int32), device=d)
+                     for a in arrays)) for name, *arrays in out]
+
+
+def test_converged_early_on_views_tails_and_hubs_on_the_card(cuda):
+    """K6 against its plain version, as above, on ``src[1:]``/``dst[1:]``
+    (not 16-byte aligned: the scalar kernel) and ``src[4:]``/``dst[4:]``
+    (aligned views) of the adversarial cases, on tails of 1-3 edges past
+    the last whole vector with the witness in the tail, and on a witness
+    found only by the root test at a hub."""
+    from repro_torch.kernels.contour_mm import converged as cv
+    checks = 0
+    for name, L, src, dst in _converged_cases(cuda):
+        for cut in (1, 4):
+            checks += _check_converged(cv, cuda, f"{name}[{cut}:]", L,
+                                       src[cut:], dst[cut:])
+    for name, L, src, dst in _tails_and_root_witnesses(cuda):
+        checks += _check_converged(cv, cuda, name, L, src, dst)
+        assert not bool(cv.converged_early(L, src, dst)), name
+    torch.cuda.synchronize()
+    assert checks == (12 + 4) * 8
+
+
+def test_converged_early_counts_out_of_range_ids_on_the_card(cuda):
+    """An edge with an id outside [0, n), in a whole vector, in the tail or
+    on the scalar kernel, and a label outside [0, n), are witnesses, and
+    the kernel reads nothing through them (the plain version raises or
+    wraps, so it is not asked)."""
+    from repro_torch.kernels.contour_mm import converged as cv
+    n = 64
+    L = torch.arange(n, dtype=torch.int32, device=cuda) // 8 * 8
+    s = torch.arange(0, 64, 8, dtype=torch.int32, device=cuda).repeat(4)
+    d = s + torch.arange(1, 33, dtype=torch.int32, device=cuda) % 8
+    s, d = s.contiguous(), d.contiguous()
+    assert bool(cv.converged_early(L, s, d))
+    # views: 8 whole vectors; 7 and a tail of edges 28, 29; the scalar
+    # kernel
+    views = (slice(None), slice(None, 30), slice(1, None))
+    for pos in (5, 29):
+        for bad_id in (-1, n, 1 << 30):
+            for t in (s, d):
+                saved = int(t[pos])
+                t[pos] = bad_id
+                for view in views:
+                    assert not bool(cv.converged_early(L, s[view], d[view]))
+                state = cv.loop_state(cuda)
+                cv.converged_early(L, s, d, state=state)
+                assert state.tolist() == [0, 1, 0, 0]
+                t[pos] = saved
+    far = L.clone()
+    far[s[3]] = far[d[3]] = n + 5            # L[w] == L[v], outside [0, n)
+    assert not bool(cv.converged_early(far, s, d))
+    assert not bool(cv.converged_early(far, s[1:], d[1:]))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 33, 1_000_003])
