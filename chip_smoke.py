@@ -36,6 +36,19 @@ against scipy's connected components:
   FastSV iteration timed with and without the freeze of its state;
 * the frontier path, ``solve(g, sampling=2, compact_every=2,
   sampling_strategy=s)`` for every sampling strategy, staged;
+* the streaming path, ``StreamingConnectivity(n).ingest(src, dst,
+  validate=False)`` over the main path's graphs' own edges in batches of
+  2**20 (device tensors), against scipy, the ``torch`` backend's stream
+  bit for bit, ``resolve()`` and a checkpoint round trip, with the
+  kernels of each delta solve (``fused_relax``, ``converged_early``,
+  ``pointer_jump``) counted; at the check scale, against the same stream
+  on CPU tensors after every batch;
+* the serving path, ``run_simulation`` (the serving engine under four
+  query threads and an ingest thread) at 4,194,304 vertices, 250,000
+  queries and 250 ingests, against scipy and a ``torch``-backend stream,
+  a sample of its answers against the final labels; then two injected
+  crashes recovered from checkpoints and the write-ahead log, with no
+  acknowledged ingest lost and the clean run's labels;
 * the float kernels' entry points, ``fused_rmsnorm(x, w)`` and
   ``flash_attention(q, k, v)``, at mistral-nemo-12b's widths (d_model
   5120; 32 heads, 8 KV heads, head dim 128) over 8 x 4096 and 2 x 4096
@@ -63,9 +76,11 @@ with code 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -79,7 +94,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import Graph, solve  # noqa: E402
+from repro_torch import Graph, StreamingConnectivity, solve  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.connectivity import SAMPLING_STRATEGIES, minmap  # noqa: E402
 from repro_torch.connectivity import fastsv  # noqa: E402
 from repro_torch.connectivity import frontier as fr  # noqa: E402
@@ -95,6 +111,10 @@ from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
     fused_rmsnorm, rmsnorm_ref)
 from repro_torch.kernels.fused_rmsnorm import \
     kernel as rms_kernel  # noqa: E402
+from repro_torch.runtime import FaultInjector, SimulatedFault  # noqa: E402
+from repro_torch.serving import ConnectivityEngine  # noqa: E402
+from repro_torch.serving.simulate import (  # noqa: E402
+    WorkloadSpec, make_ingest_plan, run_simulation)
 
 DEVICE = "cuda"
 # rmat(22, 16) is the size of the paper's soc-LiveJournal1
@@ -128,6 +148,29 @@ BF16_TENSOR_OPS_PER_S = 989e12
 # mistral-nemo-12b (src/repro/configs/mistral_nemo_12b.py): d_model, query
 # heads, KV heads, head dim
 NEMO = {"d": 5120, "H": 32, "Hkv": 8, "hd": 128}
+# the streaming path: each main-path graph's own edges, in order, in
+# batches of this many edges (device tensors, validate=False: the
+# pre-validated device stream), and the batch at the check scale
+STREAM_BATCH = 1 << 20
+CHECK_STREAM_BATCH = 1 << 16
+# the serving path: 250,000 queries and 250 ingests of 65,536 edges into
+# 4,194,304 vertices (16.4M edges, rmat(22)'s vertex count)
+SERVE_SPEC = WorkloadSpec(n_vertices=4_194_304, n_queries=250_000,
+                          zipf_a=1.3, burst_mean=64, write_ratio=0.001,
+                          edges_per_batch=65_536, n_query_threads=4,
+                          window=4096, seed=0)
+# its recovery run (benchmarks/serving.py's fault schedule and cadence):
+# 40 ingests and 20,000 queries, two injected crashes
+RECOVERY_SPEC = dataclasses.replace(SERVE_SPEC, n_queries=20_000,
+                                    write_ratio=0.002)
+RECOVERY_FAIL_AT = ((3, "pre"), (17, "pre"))
+RECOVERY_CHECKPOINT_EVERY = 8
+# answers of the serving run held against its final labels
+ANSWER_SAMPLE = 10_000
+# the time the two phases are meant to take together at most (printed
+# beside their seconds; the serving run's wall is the host's, which
+# varies with the machine's load, so it is reported, not a check)
+STREAM_SERVE_BUDGET_S = 120.0
 # kernel against plain version in float32, (atol, rtol, rms_rel) by working
 # type: every element within |a - b| <= atol + rtol * |b|, and the whole
 # output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
@@ -381,9 +424,12 @@ def c2_states(g, count: int):
 
 def scipy_labels(g) -> np.ndarray:
     """Min-vertex-id component labels from scipy's connected_components."""
+    return scipy_labels_of(*g.to_numpy())
+
+
+def scipy_labels_of(s: np.ndarray, d: np.ndarray, n: int) -> np.ndarray:
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
-    s, d, n = g.to_numpy()
     adj = coo_matrix((np.ones(len(s), np.int8), (s, d)), shape=(n, n))
     _, lab = connected_components(adj.tocsr(), directed=False)
     _, first = np.unique(lab, return_index=True)  # min id per component
@@ -1337,6 +1383,303 @@ def drive_baseline(g, name: str, algorithm: str, reference: np.ndarray,
     return out
 
 
+def edge_batches(g, batch: int) -> list:
+    """The graph's edges in order, as views of its tensors, ``batch`` at
+    a time."""
+    return [(g.src[i:i + batch], g.dst[i:i + batch])
+            for i in range(0, g.n_edges, batch)]
+
+
+def stream_graph(g, batch: int, count=None, **options):
+    """A stream fed the graph's edge batches (the first ``count``)."""
+    eng = StreamingConnectivity(g.n_vertices, **options)
+    for src, dst in edge_batches(g, batch)[:count]:
+        eng.ingest(src, dst, validate=False)
+    return eng
+
+
+def same_state(a: dict, b: dict, what: str) -> None:
+    """Two streams' state dicts, key by key, bit for bit."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: keys differ")
+    for key, x in a.items():
+        y = b[key]
+        if isinstance(x, torch.Tensor):
+            same = (x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x, y.to(x.device)))
+        else:
+            same = type(x) is type(y) and x == y
+        if not same:
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def round_trip(g, batch: int, uninterrupted: dict, what: str,
+               **options) -> dict:
+    """Half the batches, a checkpoint, a restore onto the card, the rest:
+    the state dict must equal the uninterrupted stream's."""
+    batches = edge_batches(g, batch)
+    half = len(batches) // 2
+    with tempfile.TemporaryDirectory(prefix="stream_ckpt_") as directory:
+        mgr = CheckpointManager(directory)
+        first = stream_graph(g, batch, half, **options)
+        sync()
+        t0 = time.perf_counter()
+        first.save(mgr)
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        del first
+        t0 = time.perf_counter()
+        resumed, step = StreamingConnectivity.restore(mgr, **{
+            k: v for k, v in options.items() if k != "store_edges"})
+        sync()
+        restore_s = time.perf_counter() - t0
+    if step != half or resumed.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"{what}: restored step {step} on "
+                             f"{resumed.device}")
+    for src, dst in batches[half:]:
+        resumed.ingest(src, dst, validate=False)
+    same_state(resumed.state_dict(), uninterrupted,
+               f"{what}: restored stream")
+    return {"batches": len(batches), "saved_at": half, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def drive_stream(g, name: str, reference: np.ndarray) -> dict:
+    """The streaming path on a main-path graph: its own edges in order,
+    ``STREAM_BATCH`` at a time, as device tensors.
+
+    The labels after the last batch must equal scipy's, with every batch
+    converged, and ``resolve()`` must leave them as they are; the same
+    stream on the ``torch`` backend (plain torch on the card, no kernel)
+    must give the same labels and counters bit for bit; the stream must
+    have launched the sweep, the test and the jump kernels.  The host's
+    reads an ingest are counted on a second run (with ``store_edges=
+    False``), which a checkpoint round trip must then reproduce."""
+    batches = edge_batches(g, STREAM_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    reset_launch_counts()
+    eng = StreamingConnectivity(g.n_vertices)
+    ms, iterations = [], []
+    t_all = time.perf_counter()
+    for src, dst in batches:
+        before = int(eng.snapshot().iterations)
+        t0 = time.perf_counter()
+        eng.ingest(src, dst, validate=False)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        iterations.append(int(eng.snapshot().iterations) - before)
+    wall = time.perf_counter() - t_all
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in ("fused_relax", "converged_early", "pointer_jump")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"stream {name}: did not launch {missing}")
+    snap = eng.snapshot()
+    if not bool(snap.converged):
+        raise AssertionError(f"stream {name}: not converged")
+    if not np.array_equal(snap.labels.cpu().numpy(), reference):
+        raise AssertionError(f"stream {name}: labels differ from scipy")
+    reset_launch_counts()
+    plain = stream_graph(g, STREAM_BATCH, backend="torch")
+    launched = {k: v for k, v in launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"the torch backend's stream launched "
+                             f"kernels: {launched}")
+    same_result(snap, plain.snapshot(), f"stream {name} (torch backend)")
+    del plain
+    reset_launch_counts()
+    labels = eng.labels.clone()
+    t0 = time.perf_counter()
+    eng.resolve()
+    sync()
+    resolve_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(eng.labels, labels):
+        raise AssertionError(f"stream {name}: resolve() changed the labels")
+    for k, v in launch_counts().items():
+        launches[k] += v
+    out = {"phase": "stream_path", "graph": name, "n": g.n_vertices,
+           "m": g.n_edges, "batch": STREAM_BATCH, "batches": len(batches),
+           "wall_s": wall,
+           "ingest_ms": {"p50": float(np.percentile(ms, 50)),
+                         "p90": float(np.percentile(ms, 90)),
+                         "first": ms[0], "max": max(ms)},
+           "edges_per_s": g.n_edges / wall,
+           "iterations_per_batch": iterations,
+           "iterations": int(snap.iterations),
+           "edges_visited": float(snap.edges_visited),
+           "resolve_ms": resolve_ms, "peak_bytes": peak,
+           "launches": launches, "n_components": eng.n_components,
+           "provenance": list(snap.provenance or ())}
+    del eng, snap
+    held = []
+    syncs = host_syncs(lambda: held.append(
+        stream_graph(g, STREAM_BATCH, store_edges=False)))
+    out["host_syncs_per_ingest"] = syncs["total"] / len(batches)
+    out["host_syncs"] = syncs
+    out["checkpoint"] = round_trip(g, STREAM_BATCH, held[0].state_dict(),
+                                   f"stream {name}", store_edges=False)
+    del held
+    out["profiled_first_8_batches"] = device_idle(
+        lambda: stream_graph(g, STREAM_BATCH, 8))
+    emit(out)
+    return out
+
+
+def stream_vs_cpu(g, name: str) -> dict:
+    """At the check scale: the stream on the card equals the same stream
+    on CPU tensors after every batch, state dict and all, and a
+    checkpoint round trip with the edge store reproduces it."""
+    sync()
+    reset_launch_counts()
+    card = StreamingConnectivity(g.n_vertices)
+    cpu = StreamingConnectivity(g.n_vertices, device="cpu")
+    batches = edge_batches(g, CHECK_STREAM_BATCH)
+    t0 = time.perf_counter()
+    for i, (src, dst) in enumerate(batches):
+        card.ingest(src, dst, validate=False)
+        cpu.ingest(src.cpu(), dst.cpu())
+        same_state(cpu.state_dict(), card.state_dict(),
+                   f"stream {name}, batch {i}: card vs cpu")
+    launches = launch_counts()
+    out = {"phase": "stream_path", "graph": name, "check": "card_vs_cpu",
+           "batch": CHECK_STREAM_BATCH, "batches": len(batches),
+           "wall_s": time.perf_counter() - t0, "launches": launches,
+           "checkpoint": round_trip(g, CHECK_STREAM_BATCH,
+                                    card.state_dict(), f"stream {name}")}
+    emit(out)
+    return out
+
+
+class RecordingEngine(ConnectivityEngine):
+    """The engine, with every point query's answer kept beside it (the
+    future's callback runs where the answer is set)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.answers = []
+
+    def submit_query(self, kind, u=None, v=None, *, timeout=None):
+        fut = super().submit_query(kind, u, v, timeout=timeout)
+        if kind != "n_components":
+            fut.add_done_callback(
+                lambda f, q=(kind, u, v): self.answers.append((q, f)))
+        return fut
+
+
+def serve(spec, **engine_kwargs) -> tuple:
+    """``run_simulation`` on the card; returns the report, the final
+    labels, the launches and the engine."""
+    sync()
+    reset_launch_counts()
+    eng = RecordingEngine(spec.n_vertices, **engine_kwargs)
+    try:
+        report, labels = run_simulation(spec, engine=eng)
+    finally:
+        eng.close()
+    if eng.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"the engine ran on {eng.device}")
+    return report, labels, launch_counts(), eng
+
+
+def phase_serve() -> list:
+    """The serving path: ``run_simulation`` at ``SERVE_SPEC``, its labels
+    against scipy and against a ``torch``-backend stream fed the same
+    plan, a sample of its answers against the final labels; then the
+    recovery run against a clean run of the same spec."""
+    t0 = time.perf_counter()
+    report, labels, launches, eng = serve(SERVE_SPEC)
+    wall = time.perf_counter() - t0
+    n_batches = SERVE_SPEC.n_ingest_batches
+    if report["failures"] or report["acked_batches"] != n_batches:
+        raise AssertionError(f"serve: {report['failures']} failures, "
+                             f"{report['acked_batches']} of {n_batches} "
+                             f"acked: {report['failure_sample']}")
+    plan = make_ingest_plan(SERVE_SPEC)
+    src = np.concatenate([s for s, _ in plan])
+    dst = np.concatenate([d for _, d in plan])
+    if not np.array_equal(labels, scipy_labels_of(src, dst,
+                                                  SERVE_SPEC.n_vertices)):
+        raise AssertionError("serve: final labels differ from scipy")
+    reset_launch_counts()
+    plain = StreamingConnectivity(SERVE_SPEC.n_vertices, backend="torch")
+    for s, d in plan:
+        plain.ingest(s, d)
+    if any(launch_counts().values()):
+        raise AssertionError("the torch backend's stream launched kernels")
+    if not np.array_equal(labels, plain.labels.cpu().numpy()):
+        raise AssertionError("serve: final labels differ from the torch "
+                             "backend's stream")
+    del plain
+    rng = np.random.default_rng(0)
+    answers = eng.answers
+    checked = min(ANSWER_SAMPLE, len(answers))
+    wrong = 0
+    for i in rng.choice(len(answers), checked, replace=False):
+        (kind, u, v), fut = answers[i]
+        got = fut.result()
+        if kind == "same_component":
+            # components only merge: a True stays true
+            wrong += bool(got) and labels[u] != labels[v]
+        else:
+            # labels only decrease
+            wrong += got < labels[u]
+    if wrong:
+        raise AssertionError(f"serve: {wrong} sampled answers contradict "
+                             "the final labels")
+    out = {"phase": "serve_path", "spec": dataclasses.asdict(SERVE_SPEC),
+           "wall_s": wall, "latency_ms": report["latency_ms"],
+           "throughput_qps": report["throughput_qps"],
+           "ingest_visibility_ms": report["ingest_visibility_ms"],
+           "ingest_batches_per_s": report["ingest_batches_per_s"],
+           "batch_size_hist": report["batch_size_hist"],
+           "queue_depth_hist": report["queue_depth_hist"],
+           "counters": report["counters"], "final": report["final"],
+           "acked_batches": report["acked_batches"],
+           "failures": report["failures"], "answers_checked": checked,
+           "launches": launches}
+    emit(out)
+    del eng, answers
+
+    t0 = time.perf_counter()
+    clean, clean_labels, clean_launches, _ = serve(RECOVERY_SPEC)
+    with tempfile.TemporaryDirectory(prefix="serve_ckpt_") as directory:
+        faulty, faulty_labels, faulty_launches, _ = serve(
+            RECOVERY_SPEC, manager=CheckpointManager(directory),
+            fault_injector=FaultInjector(fail_at=RECOVERY_FAIL_AT),
+            checkpoint_every=RECOVERY_CHECKPOINT_EVERY,
+            recoverable=(SimulatedFault,))
+    n_batches = RECOVERY_SPEC.n_ingest_batches
+    for what, rep in (("clean", clean), ("faulty", faulty)):
+        if rep["failures"] or rep["acked_batches"] != n_batches:
+            raise AssertionError(f"recovery ({what}): {rep['failures']} "
+                                 f"failures, {rep['acked_batches']} of "
+                                 f"{n_batches} acked")
+    lost = n_batches - faulty["final"]["n_batches"]
+    same = np.array_equal(faulty_labels, clean_labels)
+    if (faulty["counters"]["restarts"] != len(RECOVERY_FAIL_AT) or lost
+            or not same):
+        raise AssertionError(
+            f"recovery: {faulty['counters']['restarts']} restarts, {lost} "
+            f"acknowledged ingests lost, labels equal: {same}")
+    recovery = {"phase": "serve_recovery",
+                "spec": dataclasses.asdict(RECOVERY_SPEC),
+                "fail_at": RECOVERY_FAIL_AT,
+                "checkpoint_every": RECOVERY_CHECKPOINT_EVERY,
+                "wall_s": time.perf_counter() - t0,
+                "restarts": faulty["counters"]["restarts"],
+                "replayed_batches": faulty["counters"]["replayed_batches"],
+                "checkpoints": faulty["counters"]["checkpoints"],
+                "acked_ingest_loss": lost,
+                "labels_crc32": faulty["final"]["labels_crc32"],
+                "clean_labels_crc32": clean["final"]["labels_crc32"],
+                "launches": {k: clean_launches[k] + faulty_launches[k]
+                             for k in KERNEL_NAMES}}
+    emit(recovery)
+    return [out, recovery]
+
+
 def float_err(a: torch.Tensor, b: torch.Tensor, tol: tuple) -> dict:
     """Kernel output ``a`` against plain output ``b`` in float32, ``tol`` =
     (atol, rtol, rms_rel): max |a - b|, how far the worst element lies past
@@ -1884,7 +2227,33 @@ def main(argv=None) -> int:
     emit({"phase": "baseline_path_done",
           "seconds": time.perf_counter() - t0})
 
-    # 9. the kernels line: launches summed over every path's runs
+    # 9. the streaming path: the main path's graphs streamed in batches of
+    # their own edges, then the card against CPU tensors at the check scale
+    t0 = time.perf_counter()
+    stream_runs = [drive_stream(delaunay, delaunay_name, ref_delaunay),
+                   drive_stream(rmat, rmat_name, ref_rmat)]
+    del rmat, delaunay
+    stream_runs += [stream_vs_cpu(g, name) for name, g in (
+        (f"delaunay_like({args.check_scale})",
+         gen.delaunay_like(args.check_scale, device=DEVICE)),
+        (f"rmat({args.check_scale},{RMAT_EDGE_FACTOR})",
+         gen.rmat(args.check_scale, edge_factor=RMAT_EDGE_FACTOR,
+                  device=DEVICE)))]
+    runs += stream_runs
+    stream_s = time.perf_counter() - t0
+    emit({"phase": "stream_path_done", "seconds": stream_s})
+
+    # 10. the serving path: the engine under traffic on the card, and its
+    # recovery from injected crashes
+    t0 = time.perf_counter()
+    runs += phase_serve()
+    serve_s = time.perf_counter() - t0
+    emit({"phase": "serve_path_done", "seconds": serve_s,
+          "stream_and_serve_s": stream_s + serve_s,
+          "budget_s": STREAM_SERVE_BUDGET_S,
+          "within_budget": stream_s + serve_s <= STREAM_SERVE_BUDGET_S})
+
+    # 11. the kernels line: launches summed over every path's runs
     line = []
     for name in KERNEL_NAMES:
         k = dict(kernels[name])

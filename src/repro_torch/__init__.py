@@ -16,6 +16,7 @@ from repro_torch.connectivity import (
     ComponentResult,
     Graph,
     SolveOptions,
+    StreamingConnectivity,
     list_solvers,
     register_solver,
     solve,
@@ -25,6 +26,7 @@ __all__ = [
     "ComponentResult",
     "Graph",
     "SolveOptions",
+    "StreamingConnectivity",
     "list_solvers",
     "register_solver",
     "solve",

@@ -36,6 +36,7 @@ from repro_torch.connectivity.registry import (
 )
 from repro_torch.connectivity import solvers as _solvers  # registers them
 from repro_torch.connectivity.solve import solve
+from repro_torch.connectivity.streaming import StreamingConnectivity
 from repro_torch.connectivity.contour import VARIANTS
 from repro_torch.graphs.structs import Graph
 
@@ -46,6 +47,7 @@ __all__ = [
     "SamplingStrategy",
     "SolveOptions",
     "SolverSpec",
+    "StreamingConnectivity",
     "VARIANTS",
     "get_solver",
     "list_solvers",

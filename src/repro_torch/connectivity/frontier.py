@@ -346,6 +346,7 @@ def adaptive_fixpoint(
     sampling: int,
     compact_every: int,
     max_iters: int,
+    active_m0: Optional[int] = None,
     sample_m0: Optional[int] = None,
     loop: Optional[cv.LoopOps] = None,
 ):
@@ -353,16 +354,22 @@ def adaptive_fixpoint(
     masked realisation: the edge arrays keep their length).
 
     ``step(L, it, src, dst, limit)`` sweeps the first ``limit`` edges.
-    ``sample_m0`` is the sample width (default :func:`sample_prefix_m`),
-    as a strategy's :func:`prepare_sampling` gives it.  ``loop`` is the
-    backend's test and jump round (default the kernels').
+    ``active_m0`` is the initial live prefix (default every edge): a
+    caller passing fewer asserts that the tail already lies inside its
+    components under ``L0`` (self-loop padding, the streaming engine's
+    padded batch), so it is never swept and never counted in
+    ``edges_visited``.  ``sample_m0`` is the sample width (default
+    :func:`sample_prefix_m` of the whole length), as a strategy's
+    :func:`prepare_sampling` gives it.  ``loop`` is the backend's test
+    and jump round (default the kernels').
 
     Returns ``(labels, iterations, converged, edges_visited)``: an int
     and a bool beside the labels, and a float32 counter.
     """
     m = int(src.shape[0])
     sample_m = sample_prefix_m(m) if sample_m0 is None else int(sample_m0)
-    s = FrontierState(L=L0, src=src, dst=dst, active_m=m,
+    s = FrontierState(L=L0, src=src, dst=dst,
+                      active_m=m if active_m0 is None else int(active_m0),
                       loop=loop or cv.loop_ops("cuda"))
     while not s.done and s.it < max_iters:
         advance(s, step, sample_m=sample_m, sampling=sampling,

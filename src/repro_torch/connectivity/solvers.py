@@ -26,17 +26,23 @@ from repro_torch.connectivity.planner.heuristics import heuristic_plan
 from repro_torch.connectivity.registry import SolverSpec, register_solver
 
 
-def resolve_plan(graph, opts):
-    """The plan a solve on ``graph``'s device runs under.
+def resolve_backend_plan(n_vertices: int, n_edges: int, device, opts):
+    """The plan a solve of this size on ``device`` runs under.
 
     ``backend="auto"`` takes the heuristic table's plan; an explicit
     backend is substituted into it, so the plan recorded in provenance is
     the one that ran.
     """
-    plan = heuristic_plan(graph.n_vertices, graph.n_edges, graph.device)
+    plan = heuristic_plan(n_vertices, n_edges, device)
     if opts.backend != "auto":
         plan = plan.replace(backend=opts.backend, origin="pinned")
     return plan
+
+
+def resolve_plan(graph, opts):
+    """The plan a solve on ``graph``'s device runs under."""
+    return resolve_backend_plan(graph.n_vertices, graph.n_edges,
+                                graph.device, opts)
 
 
 def _sampling_provenance(opts):
@@ -94,6 +100,7 @@ CONTOUR = register_solver(SolverSpec(
     variants=_contour.VARIANTS + ("C-<h>",),
     default_variant="C-2",
     default_max_iters=100_000,
+    supports_streaming=True,     # any async variant (C-Syn rejected)
     paper_ref="§III-B (Alg. 1, variants §III-B4)",
 ))
 

@@ -4,8 +4,9 @@ Connectivity has no weights: its state is the graph and the labels.
 These helpers build the port's objects from numpy arrays — for example
 the reference's outputs passed through ``np.asarray`` — and take nothing
 else, so no object of another framework crosses into the port.
-:func:`tensor_from_numpy` carries the float inputs of the attention and
-normalisation kernels.
+:func:`stream_from_state` carries a stream across: it rebuilds a
+streaming engine from a stream's state dict.  :func:`tensor_from_numpy`
+carries the float inputs of the attention and normalisation kernels.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.connectivity.result import ComponentResult
 from repro_torch.connectivity.solve import make_result
+from repro_torch.connectivity.streaming import StreamingConnectivity
 from repro_torch.graphs.structs import DeviceLike, Graph, resolve_device
 
 _SCALARS = (np.ndarray, np.generic, bool, int, float)
@@ -71,3 +73,23 @@ def tensor_from_numpy(a, dtype: str = "float32",
                          f"{tuple(FLOAT_DTYPES)}")
     t = torch.from_numpy(np.ascontiguousarray(a)).to(FLOAT_DTYPES[dtype])
     return t.to(resolve_device(device))
+
+
+def stream_from_state(state: dict,
+                      device: DeviceLike = None) -> StreamingConnectivity:
+    """A :class:`~repro_torch.connectivity.streaming.StreamingConnectivity`
+    on ``device`` from a stream's ``state_dict()`` given as numpy values —
+    for example the reference's, each value passed through
+    ``np.asarray``.  Solver options are not part of a stream's state
+    (nor of its checkpoints): the stream takes the default options."""
+    if not isinstance(state, dict):
+        raise TypeError(f"state must be a dict, got {type(state).__name__}")
+    state = {key: _require_numpy(key, value, scalar=True)
+             for key, value in state.items()}
+    missing = set(StreamingConnectivity._STATE_KEYS) - set(state)
+    if missing:
+        raise ValueError(f"state is missing {sorted(missing)}")
+    eng = StreamingConnectivity(int(state["n"]),
+                                store_edges=bool(state["store_edges"]),
+                                device=device)
+    return eng.load_state_dict(state)

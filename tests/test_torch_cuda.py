@@ -876,3 +876,67 @@ def test_flash_launch_refused_for_shared_memory_raises(cuda, dtype):
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), flash_mha_plain(q, k, k).float(),
                                atol=tol[0], rtol=tol[1])
+
+
+def _stream_batches(n, seed, n_batches=6):
+    g = gen.rmat(12, seed=seed, device="cpu")
+    src, dst, _ = g.to_numpy()
+    m = len(src)
+    return g.n_vertices, [(src[b * m // n_batches:(b + 1) * m // n_batches],
+                           dst[b * m // n_batches:(b + 1) * m // n_batches])
+                          for b in range(n_batches)]
+
+
+def test_stream_on_the_card_equals_the_stream_on_cpu(cuda):
+    """The streaming engine on the card launches the sweep, test and jump
+    kernels, and after every batch its state dict equals the same stream's
+    on CPU tensors (the plain versions) bit for bit; device batches with
+    validate=False take the same path."""
+    from repro_torch import StreamingConnectivity
+
+    n, batches = _stream_batches(1 << 12, seed=3)
+    card = StreamingConnectivity(n, device=cuda)
+    on_device = StreamingConnectivity(n, device=cuda)
+    cpu = StreamingConnectivity(n, device="cpu")
+    contour_mm.reset_launch_counts()
+    for src, dst in batches:
+        card.ingest(src, dst)
+        on_device.ingest(torch.as_tensor(src, device=cuda),
+                         torch.as_tensor(dst, device=cuda), validate=False)
+        cpu.ingest(src, dst)
+        want = cpu.state_dict()
+        for eng in (card, on_device):
+            got = eng.state_dict()
+            for key, value in want.items():
+                got_value = got[key]
+                if isinstance(got_value, torch.Tensor):
+                    assert got_value.device.type == "cuda"
+                    assert torch.equal(got_value.cpu(), value), key
+                else:
+                    assert got_value == value, key
+    from repro_torch.kernels.contour_mm import converged as cv
+    assert blocked.fused_relax.launches > 0
+    assert cv.converged_early.launches > 0 and cv.pointer_jump.launches > 0
+    assert card.n_components == cpu.n_components
+
+
+def test_engine_refuses_out_of_range_ids_and_goes_on(cuda):
+    """An id out of range never reaches the gather on the card (where it
+    would raise a device-side assert and poison the context): the query
+    fails with IndexError and the engine goes on answering."""
+    from repro_torch.serving import ConnectivityClient, ConnectivityEngine
+
+    with ConnectivityEngine(64, device=cuda) as eng:
+        c = ConnectivityClient(eng)
+        c.ingest(np.arange(10), np.arange(1, 11))
+        for bad in (lambda: c.component_of(64),
+                    lambda: c.same_component(0, 1 << 20),
+                    lambda: c.same_component(-1, 3)):
+            with pytest.raises(IndexError):
+                bad()
+        with pytest.raises(ValueError, match="n_vertices"):
+            c.ingest([0], [64])
+        assert c.same_component(0, 10) and not c.same_component(0, 11)
+        assert c.component_of(7) == 0 and c.n_components() == 54
+    assert eng.snapshot().labels.device.type == "cuda"
+    torch.cuda.synchronize()

@@ -40,7 +40,11 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     import repro_torch
     modules = [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")]
-    assert "repro_torch.kernels.contour_mm.blocked" in modules
+    for module in ("kernels.contour_mm.blocked", "connectivity.streaming",
+                   "checkpoint.manager", "runtime.recovery",
+                   "runtime.straggler", "serving.engine", "serving.client",
+                   "serving.simulate", "data.dedup"):
+        assert f"repro_torch.{module}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
