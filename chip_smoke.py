@@ -49,6 +49,23 @@ against scipy's connected components:
   a sample of its answers against the final labels; then two injected
   crashes recovered from checkpoints and the write-ahead log, with no
   acknowledged ingest lost and the clean run's labels;
+* the out-of-core path, ``OutOfCoreContraction(chunks).run()`` (the
+  edges on the host, the labels and one chunk on the card, each chunk
+  copied through pinned buffers on a copy stream while the chunk before
+  it folds on ``fused_relax``, ``converged_early`` and ``pointer_jump``):
+  rmat(22,16)'s host arrays in chunks of 2**20 with no edge list of it on
+  the card, R-MAT generated chunk by chunk, the async path's mesh, the
+  star forest that needs two rounds, and ``solve(g,
+  algorithm="out_of_core")``; against scipy, the in-core solve, the
+  ``torch`` backend's run after every round (on rmat(22,16)) and the CPU
+  run after every round (at the check scale); the peak device bytes
+  against the edge list's 8m; each round split into pads, copies (their
+  GB/s beside one pinned copy timed alone), folds and contraction, with
+  host syncs and the card's idle share over round 0;
+* the recovery path, ``oocore_with_recovery`` with a fault in the middle
+  of round 0 and one at a round boundary, and ``stream_with_recovery``
+  over rmat(20,16)'s edges with two faults, each against its clean run
+  bit for bit;
 * the float kernels' entry points, ``fused_rmsnorm(x, w)`` and
   ``flash_attention(q, k, v)``, at mistral-nemo-12b's widths (d_model
   5120; 32 heads, 8 KV heads, head dim 128) over 8 x 4096 and 2 x 4096
@@ -98,6 +115,9 @@ from repro_torch import Graph, StreamingConnectivity, solve  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.connectivity import SAMPLING_STRATEGIES, minmap  # noqa: E402
 from repro_torch.connectivity import fastsv  # noqa: E402
+from repro_torch.connectivity import oocore  # noqa: E402
+from repro_torch.connectivity import (  # noqa: E402
+    OutOfCoreContraction, oocore_with_recovery, stream_with_recovery)
 from repro_torch.connectivity import frontier as fr  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -171,6 +191,26 @@ ANSWER_SAMPLE = 10_000
 # beside their seconds; the serving run's wall is the host's, which
 # varies with the machine's load, so it is reported, not a check)
 STREAM_SERVE_BUDGET_S = 120.0
+# the out-of-core path: rmat(22,16)'s host arrays in chunks of 2**20 (62
+# chunks), R-MAT generated chunk by chunk (scale 20, 64 chunks of 2**18),
+# the async path's delaunay_like(21) in chunks of 2**17 (48), the star
+# forest that needs two rounds, and the check scale (64 chunks of 2**14)
+OOCORE_CHUNK = 1 << 20
+OOCORE_GENERATED = {"scale": 20, "edge_factor": 16, "chunk_edges": 1 << 18}
+OOCORE_MESH_CHUNK = 1 << 17
+OOCORE_STAR = {"k": 16, "b": 1024}
+OOCORE_CHECK = {"scale": 16, "edge_factor": 16, "chunk_edges": 1 << 14}
+# the recovery path: the out-of-core mesh with a fault in the middle of
+# round 0 and one at the boundary of round 1; rmat(20,16)'s edges streamed
+# in batches of 2**20 with two faults and a checkpoint every 4 batches
+STREAM_RECOVERY_FAIL_AT = ((3, "pre"), (11, "post_write"))
+STREAM_RECOVERY_CHECKPOINT_EVERY = 4
+# one pinned copy timed alone: the host-to-device ceiling the out-of-core
+# copies are read against
+PINNED_PROBE_BYTES = 8 << 20
+# the time the out-of-core and recovery phases are meant to take together
+# at most (reported, as STREAM_SERVE_BUDGET_S)
+OOCORE_BUDGET_S = 120.0
 # kernel against plain version in float32, (atol, rtol, rms_rel) by working
 # type: every element within |a - b| <= atol + rtol * |b|, and the whole
 # output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
@@ -1680,6 +1720,402 @@ def phase_serve() -> list:
     return [out, recovery]
 
 
+class RoundClock:
+    """The parts of each out-of-core round while it is open: host seconds
+    of the pads, the folds and the contraction, and the card's time of
+    the host-to-device copies (CUDA events on the copy stream around
+    each; the copy stream's wait for the fold two chunks back is inside,
+    and is over by then, the host having read that fold's results), by
+    wrapping the engine's functions."""
+
+    def __init__(self):
+        self.rounds = []
+        self._saved = []
+
+    def _patch(self, owner, name, wrap):
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, fn))
+        setattr(owner, name, wrap(fn))
+
+    def _timed(self, key):
+        def wrap(fn):
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.rounds[-1][key] += time.perf_counter() - t0
+            return timed
+        return wrap
+
+    def __enter__(self):
+        clock = self
+
+        def wrap_copy(copy):
+            def timed_copy(pipe, slot):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(pipe.stream)
+                copy(pipe, slot)
+                end.record(pipe.stream)
+                part = clock.rounds[-1]
+                part["copies"].append((start, end))
+                part["copy_bytes"] += pipe.host[slot].numel() * 4
+            return timed_copy
+
+        def wrap_round(run_round):
+            def timed_round(eng):
+                clock.rounds.append({"pad_s": 0.0, "fold_s": 0.0,
+                                     "contract_s": 0.0, "copies": [],
+                                     "copy_bytes": 0})
+                t0 = time.perf_counter()
+                record = run_round(eng)
+                clock.rounds[-1]["round_s"] = time.perf_counter() - t0
+                return record
+            return timed_round
+
+        self._patch(oocore, "_pad_chunk", self._timed("pad_s"))
+        self._patch(oocore, "_fold_chunk", self._timed("fold_s"))
+        self._patch(OutOfCoreContraction, "_contract",
+                    self._timed("contract_s"))
+        self._patch(oocore._ChunkPipeline, "_copy", wrap_copy)
+        self._patch(OutOfCoreContraction, "run_round", wrap_round)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved = []
+
+    def report(self) -> list:
+        """Each round's seconds by part; the copies' device seconds and
+        GB/s; ``other_s`` is the rest of the round (the chunks' reads or
+        generation, the waits on the pinned buffers)."""
+        sync()
+        out = []
+        for part in self.rounds:
+            copy_s = sum(a.elapsed_time(b) for a, b in part["copies"]) / 1e3
+            out.append({
+                "round_s": part["round_s"], "pad_s": part["pad_s"],
+                "fold_s": part["fold_s"], "contract_s": part["contract_s"],
+                "other_s": part["round_s"] - part["pad_s"] - part["fold_s"]
+                - part["contract_s"],
+                "copy_s": copy_s, "copy_bytes": part["copy_bytes"],
+                "copy_gbps": (part["copy_bytes"] / copy_s / 1e9
+                              if copy_s else None)})
+        return out
+
+
+def pinned_copy_gbps() -> float:
+    """GB/s of one pinned ``PINNED_PROBE_BYTES`` host-to-device copy,
+    timed alone (CUDA events, mean of ``REPS``)."""
+    host = torch.zeros(PINNED_PROBE_BYTES // 4, dtype=torch.int32,
+                       pin_memory=True)
+    dev = torch.empty_like(host, device=DEVICE)
+    ms = time_ms(lambda: dev.copy_(host, non_blocking=True))
+    return PINNED_PROBE_BYTES / ms / 1e6
+
+
+def same_round(a: dict, b: dict, what: str) -> None:
+    """Two out-of-core state dicts (numpy leaves), key by key, bit for
+    bit."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: keys differ")
+    for key, x in a.items():
+        y = b[key]
+        if (x.dtype != y.dtype or x.shape != y.shape
+                or not np.array_equal(x, y)):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def same_finish(a, b, what: str) -> None:
+    """Two ``finish()`` 4-tuples (labels, iterations, converged,
+    edges_visited), bit for bit."""
+    for field, x, y in zip(("labels", "iterations", "converged",
+                            "edges_visited"), a, b):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{what}: {field} differs")
+
+
+def materialized(chunks) -> tuple:
+    """A chunk source's graph on the card and scipy's labels of it."""
+    g = chunks.materialize(device=DEVICE)
+    return g, scipy_labels(g)
+
+
+def oocore_rounds(eng) -> tuple:
+    """Every round of ``eng`` with its state dict after each, then the
+    finish."""
+    states = []
+    while not eng.finished_streaming:
+        eng.run_round()
+        states.append(eng.state_dict())
+    out = eng.finish()
+    sync()
+    return states, out
+
+
+def oocore_twin(source, states, out, what: str, **options) -> None:
+    """The same run on other terms (``options``) equals ``states`` after
+    every round and ``out`` at the end."""
+    eng = OutOfCoreContraction(source, **options)
+    for i, want in enumerate(states):
+        eng.run_round()
+        same_round(eng.state_dict(), want, f"{what}, round {i}")
+    if not eng.finished_streaming:
+        raise AssertionError(f"{what}: more rounds than the card's run")
+    same_finish(eng.finish(), out, f"{what}, finish")
+
+
+def oocore_row(name: str, source, reference, ceiling: float, *,
+               twin: bool = False, **options) -> tuple:
+    """One out-of-core run on the card, its parts and checks.
+
+    The labels must equal scipy's and the in-core solve's on the card
+    (``reference()`` gives the graph on the card and scipy's labels; it
+    runs after the peak is read), the survivors must shrink every round,
+    and the run must launch the sweep, test and jump kernels.  With
+    ``twin`` the same run on the ``torch`` backend (no kernel) must equal
+    it after every round and at the end.  Round 0 runs twice more: under
+    torch's sync debug mode (host syncs) and under the profiler (the
+    card's idle share).  Returns the printed line and the result."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    clock = RoundClock()
+    t0 = time.perf_counter()
+    with clock:
+        eng = OutOfCoreContraction(source, **options)
+        states, out = oocore_rounds(eng)
+    wall = time.perf_counter() - t0
+    peak = oocore.device_peak_bytes()
+    launches = launch_counts()
+    missing = [k for k in ("fused_relax", "converged_early", "pointer_jump")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"oocore {name}: did not launch {missing}")
+    chain = [source.n_edges] + eng.round_counts
+    if not all(b < a for a, b in zip(chain, chain[1:])):
+        raise AssertionError(f"oocore {name}: survivors {chain} do not "
+                             "shrink every round")
+    labels, iterations, converged, visited = out
+    if not bool(converged):
+        raise AssertionError(f"oocore {name}: not converged")
+    g, ref = reference()
+    if not np.array_equal(labels.cpu().numpy(), ref):
+        raise AssertionError(f"oocore {name}: labels differ from scipy")
+    if not torch.equal(solve(g).labels, labels):
+        raise AssertionError(f"oocore {name}: labels differ from the "
+                             "in-core solve")
+    del g
+    if twin:
+        reset_launch_counts()
+        oocore_twin(source, states, out, f"oocore {name} (torch backend)",
+                    backend="torch", **options)
+        if any(launch_counts().values()):
+            raise AssertionError("the torch backend's out-of-core run "
+                                 "launched kernels")
+    del states
+    syncs = host_syncs(
+        lambda: OutOfCoreContraction(source, **options).run_round())
+    idle = device_idle(
+        lambda: OutOfCoreContraction(source, **options).run_round())
+    parts = clock.report()
+    copied = sum(p["copy_bytes"] for p in parts)
+    copy_s = sum(p["copy_s"] for p in parts)
+    row = {"phase": "oocore_path", "graph": name,
+           "n": source.n_vertices, "m": source.n_edges,
+           "chunk_edges": source.chunk_edges, "chunks": source.n_chunks,
+           "options": options, "wall_s": wall,
+           "rounds": len(eng.round_counts), "decay": eng.round_counts,
+           "round_cap_exhausted": eng.round_cap_exhausted,
+           "provenance": list(eng.provenance()),
+           "iterations": int(iterations), "edges_visited": float(visited),
+           "round_parts": parts,
+           "h2d_bytes": copied,
+           "h2d_gbps": copied / copy_s / 1e9 if copy_s else None,
+           "pinned_copy_gbps": ceiling,
+           "host_syncs_round0": syncs["total"],
+           "host_syncs_round0_per_chunk": syncs["total"] / source.n_chunks,
+           "host_syncs_sites": syncs["sites"], "idle_round0": idle,
+           "peak_bytes": peak, "base_bytes": base,
+           "peak_bytes_of_the_run": peak - base,
+           "peak_bytes_estimate": eng.peak_bytes_estimate(),
+           "edge_list_bytes": oocore.EDGE_BYTES * source.n_edges,
+           "peak_above_estimate": peak - base > eng.peak_bytes_estimate(),
+           "torch_backend_twin": twin, "launches": launches}
+    return row, out
+
+
+def phase_oocore(rmat_host: tuple, mesh_host: tuple, ref_rmat: np.ndarray,
+                 rmat_name: str, mesh_name: str) -> tuple:
+    """The out-of-core path (module docstring); returns the printed lines
+    and the mesh's result and round count, which the recovery path holds
+    its recovered runs against."""
+    ceiling = pinned_copy_gbps()
+    rows = []
+
+    # stress: rmat(22,16)'s host arrays; no edge list of it on the card
+    src, dst, n = rmat_host
+    m = int(src.shape[0])
+    row, _ = oocore_row(
+        rmat_name, gen.ArrayChunks(src, dst, n, OOCORE_CHUNK),
+        lambda: (Graph.from_numpy(src, dst, n, device=DEVICE), ref_rmat),
+        ceiling, twin=True)
+    if row["peak_bytes"] >= oocore.EDGE_BYTES * m:
+        raise AssertionError(f"oocore {rmat_name}: peak {row['peak_bytes']}"
+                             f" bytes >= the edge list's {8 * m}")
+    rows.append(row)
+    emit(row)
+
+    # the facade on the graph in core
+    g = Graph.from_numpy(src, dst, n, device=DEVICE)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(g, algorithm="out_of_core", oocore_chunk_edges=OOCORE_CHUNK)
+    sync()
+    facade_s = time.perf_counter() - t0
+    if not np.array_equal(res.labels.cpu().numpy(), ref_rmat):
+        raise AssertionError("oocore facade: labels differ from scipy")
+    prov = list(res.provenance or ())
+    if not (any(e.startswith("oocore:rounds=") for e in prov)
+            and any(f"chunk={OOCORE_CHUNK}" in e for e in prov)):
+        raise AssertionError(f"oocore facade: provenance {prov}")
+    rows.append({"phase": "oocore_path", "graph": rmat_name,
+                 "check": "facade", "wall_s": facade_s, "provenance": prov,
+                 "launches": launch_counts()})
+    emit(rows[-1])
+    del g, res
+
+    # generator-fed: the chunks never exist together on the host
+    chunks = gen.rmat_chunks(**OOCORE_GENERATED)
+
+    row, _ = oocore_row(
+        f"rmat_chunks({OOCORE_GENERATED['scale']},"
+        f"{OOCORE_GENERATED['edge_factor']})", chunks,
+        lambda: materialized(chunks), ceiling)
+    if row["peak_bytes_of_the_run"] >= row["edge_list_bytes"]:
+        raise AssertionError(f"oocore generated: peak "
+                             f"{row['peak_bytes_of_the_run']} >= "
+                             f"{row['edge_list_bytes']}")
+    rows.append(row)
+    emit(row)
+
+    # the mesh, where more than one round is likeliest
+    src, dst, n = mesh_host
+    mesh_ref = scipy_labels_of(src, dst, n)
+    row, mesh_out = oocore_row(
+        mesh_name, gen.ArrayChunks(src, dst, n, OOCORE_MESH_CHUNK),
+        lambda: (Graph.from_numpy(src, dst, n, device=DEVICE), mesh_ref),
+        ceiling)
+    rows.append(row)
+    emit(row)
+
+    # the star forest: at least two rounds, as the reference's gate row
+    star = gen.star_forest_chunks(**OOCORE_STAR)
+    row, _ = oocore_row(
+        f"star_forest({OOCORE_STAR['k']},{OOCORE_STAR['b']})", star,
+        lambda: materialized(star), ceiling, oocore_local_iters=1)
+    if row["rounds"] < 2:
+        raise AssertionError(f"oocore star forest: {row['rounds']} round")
+    rows.append(row)
+    emit(row)
+
+    # the check scale: the card against CPU tensors after every round
+    chunks = gen.rmat_chunks(**OOCORE_CHECK)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    states, out = oocore_rounds(OutOfCoreContraction(chunks))
+    launches = launch_counts()
+    oocore_twin(chunks, states, out, "oocore check scale: cpu vs card",
+                device="cpu")
+    rows.append({"phase": "oocore_path",
+                 "graph": f"rmat_chunks({OOCORE_CHECK['scale']},"
+                          f"{OOCORE_CHECK['edge_factor']})",
+                 "check": "card_vs_cpu", "rounds": len(states),
+                 "chunks": chunks.n_chunks,
+                 "wall_s": time.perf_counter() - t0, "launches": launches})
+    emit(rows[-1])
+    return rows, mesh_out, rows[3]["rounds"]
+
+
+def phase_recovery(mesh_host: tuple, mesh_out: tuple, mesh_rounds: int,
+                   stream_host: tuple, mesh_name: str,
+                   stream_name: str) -> list:
+    """The recovery path: ``oocore_with_recovery`` on the mesh with a
+    fault in the middle of round 0 and one at the boundary of round 1
+    (on the star forest when the mesh takes one round), against the clean
+    runs, and a fresh engine resumed from the last checkpoint; then
+    ``stream_with_recovery`` with two faults against the clean stream."""
+    rows = []
+    src, dst, n = mesh_host
+    mesh = gen.ArrayChunks(src, dst, n, OOCORE_MESH_CHUNK)
+    star = gen.star_forest_chunks(**OOCORE_STAR)
+    runs = [(mesh_name, mesh, {}, mesh_out,
+             [(mesh.n_chunks // 2, "oocore_chunk")]
+             + ([(1, "oocore_round")] if mesh_rounds > 1 else []))]
+    if mesh_rounds == 1:
+        star_opts = {"oocore_local_iters": 1}
+        star_out = oocore_rounds(OutOfCoreContraction(star, **star_opts))[1]
+        runs.append((f"star_forest({OOCORE_STAR['k']},{OOCORE_STAR['b']})",
+                     star, star_opts, star_out, [(1, "oocore_round")]))
+    for name, source, options, clean, fail_at in runs:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="oocore_ckpt_") as directory:
+            mgr = CheckpointManager(directory)
+            res, stats = oocore_with_recovery(
+                source, mgr, fault_injector=FaultInjector(
+                    fail_at=tuple(fail_at)), **options)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            got = (res.labels, res.iterations, res.converged,
+                   res.edges_visited)
+            same_finish(got, clean, f"oocore recovery {name}")
+            if stats.restarts != len(fail_at) or \
+                    stats.replayed_rounds != len(fail_at):
+                raise AssertionError(f"oocore recovery {name}: {stats} for "
+                                     f"{len(fail_at)} faults")
+            resumed = OutOfCoreContraction(source, **options)
+            resumed.restore(mgr)
+            same_finish(oocore_rounds(resumed)[1], clean,
+                        f"oocore recovery {name}: resumed engine")
+        rows.append({"phase": "recovery_path", "entry": "oocore_with_recovery",
+                     "graph": name, "fail_at": fail_at, "wall_s": wall,
+                     "stats": dict(stats), "launches": launches})
+        emit(rows[-1])
+
+    src, dst, n = stream_host
+    batches = [(src[i:i + STREAM_BATCH], dst[i:i + STREAM_BATCH])
+               for i in range(0, src.shape[0], STREAM_BATCH)]
+    clean = StreamingConnectivity(n)
+    for s, d in batches:
+        clean.ingest(s, d)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stream_ckpt_") as directory:
+        eng, stats = stream_with_recovery(
+            batches, n, CheckpointManager(directory),
+            checkpoint_every=STREAM_RECOVERY_CHECKPOINT_EVERY,
+            fault_injector=FaultInjector(fail_at=STREAM_RECOVERY_FAIL_AT))
+    sync()
+    wall = time.perf_counter() - t0
+    if stats["restarts"] != len(STREAM_RECOVERY_FAIL_AT):
+        raise AssertionError(f"stream recovery: {stats}")
+    same_state(eng.state_dict(), clean.state_dict(), "stream recovery")
+    rows.append({"phase": "recovery_path", "entry": "stream_with_recovery",
+                 "graph": stream_name, "batch": STREAM_BATCH,
+                 "batches": len(batches),
+                 "fail_at": STREAM_RECOVERY_FAIL_AT,
+                 "checkpoint_every": STREAM_RECOVERY_CHECKPOINT_EVERY,
+                 "wall_s": wall, "stats": stats,
+                 "launches": launch_counts()})
+    emit(rows[-1])
+    return rows
+
+
 def float_err(a: torch.Tensor, b: torch.Tensor, tol: tuple) -> dict:
     """Kernel output ``a`` against plain output ``b`` in float32, ``tol`` =
     (atol, rtol, rms_rel): max |a - b|, how far the worst element lies past
@@ -2190,6 +2626,10 @@ def main(argv=None) -> int:
     runs += frontier_runs + [async_frontier] + float_runs
     emit({"phase": "frontier_path_done",
           "seconds": time.perf_counter() - t0})
+    # the out-of-core and recovery paths take the async graphs' edges from
+    # the host
+    async_host = {name: g.to_numpy() for name, g in async_graphs.items()}
+    del async_graphs, g
 
     # 8. the baseline families: FastSV on the main path's graphs, label
     # propagation on rmat and on a smaller mesh (its iterations grow with
@@ -2232,6 +2672,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     stream_runs = [drive_stream(delaunay, delaunay_name, ref_delaunay),
                    drive_stream(rmat, rmat_name, ref_rmat)]
+    # the out-of-core path reads rmat's edges from the host
+    rmat_host = rmat.to_numpy()
     del rmat, delaunay
     stream_runs += [stream_vs_cpu(g, name) for name, g in (
         (f"delaunay_like({args.check_scale})",
@@ -2253,7 +2695,28 @@ def main(argv=None) -> int:
           "budget_s": STREAM_SERVE_BUDGET_S,
           "within_budget": stream_s + serve_s <= STREAM_SERVE_BUDGET_S})
 
-    # 11. the kernels line: launches summed over every path's runs
+    # 11. the out-of-core path: the edges stream from the host, the card
+    # holds the labels and one chunk; then the recovery loops
+    t0 = time.perf_counter()
+    _flush.clear()
+    mesh_name = f"delaunay_like({args.async_delaunay_scale})"
+    stream_name = f"rmat({args.async_rmat_scale},{RMAT_EDGE_FACTOR})"
+    oocore_runs, mesh_out, mesh_rounds = phase_oocore(
+        rmat_host, async_host[mesh_name], ref_rmat, rmat_name, mesh_name)
+    del rmat_host
+    oocore_s = time.perf_counter() - t0
+    emit({"phase": "oocore_path_done", "seconds": oocore_s})
+    t0 = time.perf_counter()
+    runs += oocore_runs + phase_recovery(
+        async_host[mesh_name], mesh_out, mesh_rounds,
+        async_host[stream_name], mesh_name, stream_name)
+    recovery_s = time.perf_counter() - t0
+    emit({"phase": "recovery_path_done", "seconds": recovery_s,
+          "oocore_and_recovery_s": oocore_s + recovery_s,
+          "budget_s": OOCORE_BUDGET_S,
+          "within_budget": oocore_s + recovery_s <= OOCORE_BUDGET_S})
+
+    # 12. the kernels line: launches summed over every path's runs
     line = []
     for name in KERNEL_NAMES:
         k = dict(kernels[name])

@@ -19,6 +19,12 @@
     solve(graph, algorithm="fastsv")
     solve(graph, algorithm="lp")
     solve(graph, algorithm="connectit")         # on the host
+
+Out-of-core (edges stream from host memory; the card holds the O(n)
+labels plus one chunk)::
+
+    chunks = rmat_chunks(scale=26, edge_factor=16, chunk_edges=1 << 20)
+    result = solve_chunks(chunks)       # never materialises all edges
 """
 from repro_torch.connectivity.frontier import (
     SAMPLING_STRATEGIES,
@@ -37,22 +43,38 @@ from repro_torch.connectivity.registry import (
 from repro_torch.connectivity import solvers as _solvers  # registers them
 from repro_torch.connectivity.solve import solve
 from repro_torch.connectivity.streaming import StreamingConnectivity
+from repro_torch.connectivity.oocore import OutOfCoreContraction, solve_chunks
+from repro_torch.connectivity.resilience import (
+    RecoveryStats,
+    oocore_with_recovery,
+    stream_with_recovery,
+)
 from repro_torch.connectivity.contour import VARIANTS
 from repro_torch.graphs.structs import Graph
+from repro_torch.runtime.recovery import (FaultInjector, ShardLossFault,
+                                          SimulatedFault)
 
 __all__ = [
     "ComponentResult",
+    "FaultInjector",
     "Graph",
+    "OutOfCoreContraction",
+    "RecoveryStats",
     "SAMPLING_STRATEGIES",
     "SamplingStrategy",
+    "ShardLossFault",
+    "SimulatedFault",
     "SolveOptions",
     "SolverSpec",
     "StreamingConnectivity",
     "VARIANTS",
     "get_solver",
     "list_solvers",
+    "oocore_with_recovery",
     "register_sampling_strategy",
     "register_solver",
     "solve",
+    "solve_chunks",
     "solver_specs",
+    "stream_with_recovery",
 ]

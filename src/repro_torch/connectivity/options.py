@@ -17,11 +17,17 @@ fields the port honours:
   the sampling phase's edges (``frontier.SAMPLING_STRATEGIES``; ``None``
   is ``"prefix"``) and ``sampling_k`` the k-out fan-in;
 * ``warm_start`` — the previous solve's labels (or a whole
-  :class:`~repro_torch.connectivity.result.ComponentResult`).
+  :class:`~repro_torch.connectivity.result.ComponentResult`);
+* **out-of-core streaming** (``algorithm="oocore"``,
+  ``connectivity.oocore``) — ``oocore_chunk_edges`` (the device edge
+  chunk; 0 takes ``planner.oocore_chunk_bucket``'s default),
+  ``oocore_round_cap`` (host-contraction rounds before the in-core
+  finish is forced) and ``oocore_local_iters`` (bounded local sweeps
+  folded per chunk per round).
 
 The reference's other fields (``mesh``, ``edge_axes``, ``local_rounds``,
-``plan``, ``vmem_limit_bytes``, the ``oocore_*`` fields) come with the
-slices that honour them, and setting one fails with a ``TypeError``.
+``plan``, ``vmem_limit_bytes``) come with the slices that honour them,
+and setting one fails with a ``TypeError``.
 ``vmem_limit_bytes`` bounded the TPU scalar kernel's whole-L ceiling,
 which ``cuda_async`` does not have.  ``kernel_fallback`` is left out
 on purpose: a kernel that fails on the card raises; it is never retried
@@ -34,6 +40,7 @@ from typing import Any, Optional
 
 from repro_torch.connectivity.frontier import get_sampling_strategy
 from repro_torch.connectivity.planner.plan import BACKENDS
+from repro_torch.connectivity.planner.staged import MIN_STAGE_EDGES
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -55,6 +62,9 @@ class SolveOptions:
     sampling_strategy: Optional[str] = None  # None = "prefix"
     sampling_k: int = 2                    # k-out sampler fan-in per vertex
     warm_start: Optional[Any] = None       # labels or ComponentResult
+    oocore_chunk_edges: int = 0            # 0 = the planner's default
+    oocore_round_cap: int = 64
+    oocore_local_iters: int = 4
 
     def replace(self, **updates) -> "SolveOptions":
         """Return a copy with the given fields replaced."""
@@ -79,3 +89,16 @@ class SolveOptions:
         if self.sampling_k < 1:
             raise ValueError(
                 f"sampling_k must be >= 1, got {self.sampling_k}")
+        if self.oocore_chunk_edges and \
+                self.oocore_chunk_edges < MIN_STAGE_EDGES:
+            raise ValueError(
+                f"oocore_chunk_edges must be 0 (auto) or >= "
+                f"MIN_STAGE_EDGES ({MIN_STAGE_EDGES}); a chunk of "
+                f"{self.oocore_chunk_edges} edges would thrash "
+                f"per-bucket compiles")
+        if self.oocore_round_cap < 1:
+            raise ValueError(f"oocore_round_cap must be >= 1, got "
+                             f"{self.oocore_round_cap}")
+        if self.oocore_local_iters < 1:
+            raise ValueError(f"oocore_local_iters must be >= 1, got "
+                             f"{self.oocore_local_iters}")

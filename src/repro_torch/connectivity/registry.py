@@ -2,8 +2,8 @@
 
 A copy of the JAX package's registry, so the port's facade looks solvers
 up the same way.  ``connectivity.solvers`` registers the port's
-families: ``contour``, ``fastsv``, ``label_propagation`` and
-``union_find``.
+families: ``contour``, ``fastsv``, ``label_propagation``,
+``union_find`` and ``oocore``.
 
 A registered solver is a callable
 

@@ -1,6 +1,6 @@
 """Registered solver families of the port.
 
-Four families of ``repro.connectivity.solvers``, one signature, with the
+Five families of ``repro.connectivity.solvers``, one signature, with the
 reference's variants, iteration budgets and capability flags:
 
 * ``contour``           — paper §III-B, all variants (Alg. 1 + §III-B4),
@@ -10,10 +10,12 @@ reference's variants, iteration budgets and capability flags:
   (Zhang, Azad & Hu);
 * ``label_propagation`` — paper §I/§V, the traversal-family baseline;
 * ``union_find``        — paper §III-C, the ConnectIt stand-in (Rem's
-  union-find with splicing, on the host).
+  union-find with splicing, on the host);
+* ``oocore``            — out-of-core multi-round contraction
+  (``connectivity.oocore``): the edges stream from host memory chunk by
+  chunk, so the problem's size is not bounded by device memory.
 
-The reference's ``distributed``, ``oocore`` and ``auto`` come with later
-slices.
+The reference's ``distributed`` and ``auto`` come with later slices.
 """
 from __future__ import annotations
 
@@ -22,8 +24,14 @@ from repro_torch.connectivity import fastsv as _fastsv
 from repro_torch.connectivity import lp as _lp
 from repro_torch.connectivity import unionfind as _unionfind
 from repro_torch.connectivity.planner import staged as _staged
-from repro_torch.connectivity.planner.heuristics import heuristic_plan
+from repro_torch.connectivity.planner.heuristics import (
+    heuristic_plan, oocore_chunk_bucket)
 from repro_torch.connectivity.registry import SolverSpec, register_solver
+from repro_torch.graphs.generators import ArrayChunks
+
+# Registry names that resolve to the out-of-core solver (and therefore
+# need ExecutionPlan.chunk_bucket stamped at plan resolution).
+_OOCORE_NAMES = ("oocore", "out_of_core")
 
 
 def resolve_backend_plan(n_vertices: int, n_edges: int, device, opts):
@@ -31,11 +39,15 @@ def resolve_backend_plan(n_vertices: int, n_edges: int, device, opts):
 
     ``backend="auto"`` takes the heuristic table's plan; an explicit
     backend is substituted into it, so the plan recorded in provenance is
-    the one that ran.
+    the one that ran.  For the out-of-core solver the plan also carries
+    the streaming chunk bucket (``chunk_bucket``).
     """
     plan = heuristic_plan(n_vertices, n_edges, device)
     if opts.backend != "auto":
         plan = plan.replace(backend=opts.backend, origin="pinned")
+    if opts.algorithm in _OOCORE_NAMES:
+        plan = plan.replace(chunk_bucket=oocore_chunk_bucket(
+            n_edges, requested=opts.oocore_chunk_edges))
     return plan
 
 
@@ -94,6 +106,17 @@ def _union_find_solver(graph, opts, init_labels):
                                  init_labels=init_labels)
 
 
+def _oocore_solver(graph, opts, init_labels):
+    # oocore builds on streaming, which imports this module
+    from repro_torch.connectivity import oocore as _oocore
+    plan = resolve_plan(graph, opts)
+    src, dst, n = graph.to_numpy()
+    chunks = ArrayChunks(src, dst, n, plan.chunk_bucket)
+    out = _oocore.oocore_labels(chunks, opts, init_labels=init_labels,
+                                device=graph.device)
+    return (*out[:4], (plan.provenance_entry(), *out[4]))
+
+
 CONTOUR = register_solver(SolverSpec(
     name="contour",
     fn=_contour_solver,
@@ -127,4 +150,16 @@ UNION_FIND = register_solver(SolverSpec(
     supports_batch=False,        # host-side sequential loop
     runs_on="host",
     paper_ref="§III-C (ConnectIt stand-in: Rem's union-find)",
+))
+
+OOCORE = register_solver(SolverSpec(
+    name="oocore",
+    fn=_oocore_solver,
+    aliases=("out_of_core",),
+    variants=_contour.VARIANTS + ("C-<h>",),
+    default_variant="C-2",
+    default_max_iters=100_000,
+    supports_batch=False,        # host-driven round loop
+    paper_ref="§III-B streamed per Behnezhad et al. / ConnectIt "
+              "multi-round contraction (DESIGN.md §15)",
 ))

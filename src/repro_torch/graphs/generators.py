@@ -20,8 +20,11 @@ Everything returns a canonicalised :class:`repro_torch.graphs.Graph`.
 The port's copy of ``repro.graphs.generators``: the same numpy builders,
 so the same seed gives the same edges, array for array.  Each takes
 ``device=`` (``None`` means ``cuda``, see ``structs.resolve_device``).
-The chunked sources (``EdgeChunks`` and its kin) come with the
-out-of-core slice.
+The chunked edge sources of the out-of-core solver (:class:`EdgeChunks`,
+:class:`ArrayChunks`, :class:`RmatChunks`, :func:`rmat_chunks`,
+:func:`star_forest_chunks`) live on the host: ``chunk(k)`` returns numpy
+arrays, the reference's bit for bit, and only
+:meth:`EdgeChunks.materialize` builds a device graph.
 """
 from __future__ import annotations
 
@@ -119,6 +122,163 @@ def rmat(scale: int, edge_factor: int = 8, seed: int = 0,
     # permute ids so degree isn't correlated with vertex id
     perm = rng.permutation(n)
     return _finish(perm[src], perm[dst], n, device)
+
+
+class EdgeChunks:
+    """Seekable host-side edge stream: pow2 chunks, never the full list.
+
+    The out-of-core contract (``repro_torch.connectivity.oocore``):
+    ``chunk(k)`` is a **pure function of k** — chunk ``k`` can be
+    (re)generated at any time without touching any other chunk, which is
+    what makes the stream (a) double-bufferable without a full
+    materialisation and (b) replayable after a crash (round-boundary
+    checkpoints store only labels + a survivor manifest; round 0 re-reads
+    the source).
+
+    Concrete sources subclass and implement :meth:`chunk`; every chunk
+    except possibly the last has exactly ``chunk_edges`` (a power of two)
+    edges.  Duplicate edges and self-loops are harmless to every
+    min-mapping solver, so chunk sources need no global canonicalisation
+    — which would require materialising the full list.
+    """
+
+    def __init__(self, n_vertices: int, n_edges: int, chunk_edges: int):
+        if chunk_edges < 1 or chunk_edges & (chunk_edges - 1):
+            raise ValueError(
+                f"chunk_edges must be a positive power of two, got "
+                f"{chunk_edges}")
+        self.n_vertices = int(n_vertices)
+        self.n_edges = int(n_edges)
+        self.chunk_edges = int(chunk_edges)
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-self.n_edges // self.chunk_edges)
+
+    def chunk_size(self, k: int) -> int:
+        """Real (unpadded) edge count of chunk ``k``."""
+        lo = k * self.chunk_edges
+        return min(self.chunk_edges, self.n_edges - lo)
+
+    def chunk(self, k: int):
+        """Return ``(src, dst)`` int64 NumPy arrays for chunk ``k``."""
+        raise NotImplementedError
+
+    def __iter__(self):
+        return (self.chunk(k) for k in range(self.n_chunks))
+
+    def materialize(self, device: DeviceLike = None) -> Graph:
+        """Concatenate every chunk into an in-core :class:`Graph` on
+        ``device`` (``None`` means ``cuda``).
+
+        The *in-core oracle* side of the out-of-core equivalence gate —
+        only call it on graphs that actually fit in memory.
+        """
+        srcs, dsts = zip(*self) if self.n_chunks else ((), ())
+        return Graph.from_numpy(
+            np.concatenate(srcs) if srcs else np.zeros(0, np.int64),
+            np.concatenate(dsts) if dsts else np.zeros(0, np.int64),
+            self.n_vertices, device=device)
+
+
+class ArrayChunks(EdgeChunks):
+    """View host-resident edge arrays as an :class:`EdgeChunks` stream."""
+
+    def __init__(self, src, dst, n_vertices: int, chunk_edges: int):
+        src = np.asarray(src)
+        dst = np.asarray(dst)
+        if src.shape != dst.shape or src.ndim != 1:
+            raise ValueError(
+                f"src/dst must be equal-length 1-D, got {src.shape} vs "
+                f"{dst.shape}")
+        super().__init__(n_vertices, src.shape[0], chunk_edges)
+        self._src, self._dst = src, dst
+
+    def chunk(self, k: int):
+        sl = slice(k * self.chunk_edges, (k + 1) * self.chunk_edges)
+        return self._src[sl], self._dst[sl]
+
+
+class RmatChunks(EdgeChunks):
+    """RMAT power-law edges generated chunk-by-chunk, never all at once.
+
+    Same recursive-matrix recursion as :func:`rmat`, but each pow2 block
+    of edges is generated by its own ``default_rng([seed, k])`` stream,
+    so ``chunk(k)`` is a pure function of ``k`` (seekable — the
+    out-of-core replay/checkpoint contract) and the peak host memory of
+    generation is O(chunk), independent of the total edge count.  In
+    place of the full generator's O(n) id-permutation, ids are
+    decorrelated from degree by a fixed odd-multiplier affine bijection
+    on [0, 2^scale) — bijective because the multiplier is odd and n is a
+    power of two.
+    """
+
+    # odd multiplier of the id-scrambling bijection (a Weyl/Knuth-style
+    # multiplicative constant, truncated per scale)
+    _SCRAMBLE_MULT = 0x9E3779B1
+
+    def __init__(self, scale: int, edge_factor: int = 8, seed: int = 0,
+                 chunk_edges: int = 1 << 14,
+                 a: float = 0.57, b: float = 0.19, c: float = 0.19):
+        n = 1 << scale
+        super().__init__(n, n * edge_factor, chunk_edges)
+        self.scale = int(scale)
+        self.seed = int(seed)
+        self._abc = (float(a), float(b), float(c))
+
+    def _scramble(self, ids: np.ndarray) -> np.ndarray:
+        mask = self.n_vertices - 1
+        mult = (self._SCRAMBLE_MULT | 1) & mask if self.scale < 32 else \
+            (self._SCRAMBLE_MULT | 1)
+        return ((ids * mult) + self.seed) & mask
+
+    def chunk(self, k: int):
+        if not 0 <= k < self.n_chunks:
+            raise IndexError(f"chunk {k} out of range "
+                             f"[0, {self.n_chunks})")
+        m = self.chunk_size(k)
+        rng = np.random.default_rng([self.seed, k])
+        a, b, c = self._abc
+        ab = a + b
+        a_norm = a / ab if ab > 0 else 0.5
+        c_norm = c / (1.0 - ab) if ab < 1 else 0.5
+        src = np.zeros(m, dtype=np.int64)
+        dst = np.zeros(m, dtype=np.int64)
+        for bit in range(self.scale):
+            go_right_rows = rng.random(m) > ab
+            p_col = np.where(go_right_rows, c_norm, a_norm)
+            go_right_cols = rng.random(m) > p_col
+            src |= go_right_rows.astype(np.int64) << bit
+            dst |= go_right_cols.astype(np.int64) << bit
+        return self._scramble(src), self._scramble(dst)
+
+
+def rmat_chunks(scale: int, edge_factor: int = 8, seed: int = 0,
+                chunk_edges: int = 1 << 14, **kwargs) -> RmatChunks:
+    """Chunk-iterator form of :func:`rmat` (see :class:`RmatChunks`)."""
+    return RmatChunks(scale, edge_factor, seed, chunk_edges, **kwargs)
+
+
+def star_forest_chunks(k: int = 16, b: int = 1024) -> ArrayChunks:
+    """Disjoint star forest that genuinely needs >= 2 out-of-core rounds.
+
+    ``k`` stars of ``b`` edges; star ``i`` owns the contiguous id block
+    ``[i*(b+1), (i+1)*(b+1))`` with the hub at the block's *top* id, so
+    every edge of a chunk scatter-mins into the same hub cell — one
+    surviving write per sweep.  With ``chunk_edges=b`` and
+    ``oocore_local_iters=1`` round 0 retires only ~1 edge per star,
+    forcing a genuine second round (most natural graphs collapse in one
+    round because the sequential chunk fold accumulates global label
+    state, like a union-find pass).
+    """
+    n = k * (b + 1)
+    src = np.empty(k * b, np.int64)
+    dst = np.empty(k * b, np.int64)
+    for i in range(k):
+        base = i * (b + 1)
+        src[i * b:(i + 1) * b] = base + b            # the hub
+        dst[i * b:(i + 1) * b] = np.arange(base, base + b)
+    return ArrayChunks(src, dst, n, b)
 
 
 def erdos_renyi(n: int, avg_degree: float = 8.0, seed: int = 0,

@@ -87,11 +87,13 @@ def test_family_budget_runs_match_reference(algorithm, max_iters, chunk,
 
 
 def test_registry_matches_reference():
-    """The port registers four families; the baselines with the
-    reference's aliases, budgets, capability flags and paper sections."""
+    """The port registers five families; the baselines and the
+    out-of-core solver with the reference's aliases, budgets, capability
+    flags and paper sections."""
     assert repro_torch.list_solvers() == ("contour", "fastsv",
-                                          "label_propagation", "union_find")
-    for name in ("fastsv", "label_propagation", "union_find"):
+                                          "label_propagation", "oocore",
+                                          "union_find")
+    for name in ("fastsv", "label_propagation", "union_find", "oocore"):
         port = dataclasses.asdict(get_solver(name))
         ref = dataclasses.asdict(ref_registry.get_solver(name))
         for key in ("fn", "variants"):
@@ -99,7 +101,8 @@ def test_registry_matches_reference():
             ref.pop(key)
         assert port == ref, name
     for alias, name in (("lp", "label_propagation"),
-                        ("connectit", "union_find"), ("rem", "union_find")):
+                        ("connectit", "union_find"), ("rem", "union_find"),
+                        ("out_of_core", "oocore")):
         assert get_solver(alias).name == name
     with pytest.raises(ValueError, match="takes no variant"):
         repro_torch.solve(_pair("path")[1], algorithm="fastsv",

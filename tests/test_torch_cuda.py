@@ -940,3 +940,112 @@ def test_engine_refuses_out_of_range_ids_and_goes_on(cuda):
         assert c.component_of(7) == 0 and c.n_components() == 54
     assert eng.snapshot().labels.device.type == "cuda"
     torch.cuda.synchronize()
+
+
+def _oocore_states(engines):
+    """Round by round, every engine's state dict equal to the first's."""
+    while not engines[0].finished_streaming:
+        records = [eng.run_round() for eng in engines]
+        assert all(r == records[0] for r in records)
+        want = engines[0].state_dict()
+        for eng in engines[1:]:
+            got = eng.state_dict()
+            assert sorted(got) == sorted(want)
+            for key, value in want.items():
+                assert got[key].dtype == value.dtype, key
+                np.testing.assert_array_equal(got[key], value, err_msg=key)
+    assert all(eng.finished_streaming for eng in engines)
+    outs = [eng.finish() for eng in engines]
+    for out in outs[1:]:
+        for a, b in zip(out, outs[0]):
+            assert torch.equal(a.cpu(), b.cpu())
+    return outs[0]
+
+
+def test_oocore_on_the_card_equals_the_torch_backend_and_cpu(cuda):
+    """The out-of-core solver on the card launches the sweep, test and
+    jump kernels, and after every round its state dict equals the same
+    run's on the `torch` backend on the card and on CPU tensors."""
+    from repro_torch.connectivity import OutOfCoreContraction
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    chunks = gen.rmat_chunks(scale=14, edge_factor=8, seed=3,
+                             chunk_edges=2048)
+    star = gen.star_forest_chunks(k=8, b=1024)
+    for source, local_iters in ((chunks, 4), (star, 1)):
+        contour_mm.reset_launch_counts()
+        engines = [OutOfCoreContraction(source, device=cuda,
+                                        oocore_local_iters=local_iters),
+                   OutOfCoreContraction(source, device=cuda,
+                                        backend="torch",
+                                        oocore_local_iters=local_iters),
+                   OutOfCoreContraction(source, device="cpu",
+                                        oocore_local_iters=local_iters)]
+        assert engines[0]._pipeline.host[0].is_pinned()
+        labels = _oocore_states(engines)[0]
+        assert labels.device.type == "cuda"
+        assert blocked.fused_relax.launches > 0
+        assert cv.converged_early.launches > 0 and cv.pointer_jump.launches > 0
+        want = connected_components_oracle(
+            *source.materialize(device="cpu").to_numpy())
+        np.testing.assert_array_equal(labels.cpu().numpy(), want)
+    assert len(engines[0].round_counts) >= 2
+
+
+def test_oocore_buffers_are_not_overwritten_in_use(cuda, monkeypatch):
+    """The copy pipeline's two hazards.  A fold that returns at once but
+    holds the card (a sleep, then a copy of the chunk it was handed) lets
+    the host run ahead: the chunk each fold saw must still be its own
+    chunk (the copy of chunk k + 2 waits for fold k; the host waits for
+    the copy out of a pinned buffer before it pads the next chunk into
+    it).  Then a fold made slow for real (many local iterations on a hub
+    graph) gives the CPU run's state dict after every round."""
+    from repro_torch.connectivity import OutOfCoreContraction
+    from repro_torch.connectivity import oocore
+
+    chunks = gen.rmat_chunks(scale=13, edge_factor=8, seed=5,
+                             chunk_edges=1024)
+    seen = []
+
+    def slow_fold(labels, src, dst, n_active, **kw):
+        torch.cuda._sleep(5_000_000)
+        seen.append(torch.stack([src, dst]).clone())
+        return labels, 0, np.float32(0)
+
+    monkeypatch.setattr(oocore, "_fold_chunk", slow_fold)
+    eng = OutOfCoreContraction(chunks, device=cuda)
+    eng._stream(chunks)
+    torch.cuda.synchronize()
+    assert len(seen) == chunks.n_chunks
+    for k, got in enumerate(seen):
+        src, dst = chunks.chunk(k)
+        want = torch.zeros_like(got, device="cpu")
+        want[0, :len(src)] = torch.from_numpy(src)
+        want[1, :len(dst)] = torch.from_numpy(dst)
+        assert torch.equal(got.cpu(), want), k
+    monkeypatch.undo()
+
+    hubs = gen.star_forest_chunks(k=16, b=1024)
+    _oocore_states([
+        OutOfCoreContraction(hubs, device=cuda, oocore_local_iters=64),
+        OutOfCoreContraction(hubs, device="cpu", oocore_local_iters=64)])
+
+
+def test_oocore_peak_bytes_below_the_edge_list(cuda):
+    """On a graph of 16 buckets, the bytes the solve allocates on the card
+    stay below the 8m bytes of its edge list."""
+    from repro_torch.connectivity import OutOfCoreContraction
+    from repro_torch.connectivity import oocore
+
+    chunks = gen.rmat_chunks(scale=16, edge_factor=16, seed=1,
+                             chunk_edges=1 << 16)
+    assert chunks.n_chunks == 16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    eng = OutOfCoreContraction(chunks, device=cuda)
+    eng.run()
+    torch.cuda.synchronize()
+    peak = oocore.device_peak_bytes(cuda) - base
+    assert 0 < peak < oocore.EDGE_BYTES * chunks.n_edges
+    assert not eng.round_cap_exhausted

@@ -198,7 +198,8 @@ BAD_OPTIONS = [
     ({"sampling": -1}, ValueError, "sampling"),
     ({"compact_every": -2}, ValueError, "compact_every"),
     ({"variant": "C-7x"}, ValueError, "unknown variant"),
-    ({"algorithm": "oocore"}, ValueError, "unknown algorithm"),
+    ({"algorithm": "auto"}, ValueError, "unknown algorithm"),
+    ({"algorithm": "oocore", "variant": "C-Syn"}, ValueError, "C-Syn"),
     ({"sampling": 2, "variant": "C-Syn"}, ValueError, "C-Syn"),
     ({"compact_every": 4, "variant": "C-Syn"}, ValueError, "C-Syn"),
     ({"sampling_strategy": "nope"}, ValueError, "sampling_strategy"),
@@ -216,18 +217,29 @@ def test_option_errors(overrides, err, match):
         repro_torch.solve(g, **overrides)
 
 
-# the reference's fields this slice leaves out: setting one is an error
+# the reference's fields the port leaves out: setting one is an error
 OMITTED = ["mesh", "edge_axes", "local_rounds", "plan", "kernel_fallback",
-           "vmem_limit_bytes", "oocore_chunk_edges", "oocore_round_cap",
-           "oocore_local_iters"]
+           "vmem_limit_bytes"]
+# the reference's out-of-core fields, ported since: the reference's
+# defaults, and a value it refuses fails as loudly
+PORTED = {"oocore_chunk_edges": 512, "oocore_round_cap": 0,
+          "oocore_local_iters": 0}
 
 
-@pytest.mark.parametrize("field", OMITTED)
+@pytest.mark.parametrize("field", OMITTED + sorted(PORTED))
 def test_omitted_fields_fail_loudly(field):
     assert field in {f.name for f in dataclasses.fields(repro.SolveOptions)}
+    _, g = _pair("path")
+    if field in PORTED:
+        assert getattr(SolveOptions(), field) == \
+            getattr(repro.SolveOptions(), field)
+        with pytest.raises(ValueError, match=field):
+            repro.SolveOptions(**{field: PORTED[field]}).validate()
+        with pytest.raises(ValueError, match=field):
+            repro_torch.solve(g, **{field: PORTED[field]})
+        return
     with pytest.raises(TypeError):
         SolveOptions(**{field: None})
-    _, g = _pair("path")
     with pytest.raises(TypeError):
         repro_torch.solve(g, **{field: None})
 
@@ -241,7 +253,8 @@ def test_other_solve_errors():
     with pytest.raises(ValueError, match="1-D"):
         repro_torch.solve(g, warm_start=np.zeros((2, 2), np.int32))
     assert repro_torch.list_solvers() == ("contour", "fastsv",
-                                          "label_propagation", "union_find")
+                                          "label_propagation", "oocore",
+                                          "union_find")
 
 
 @pytest.mark.parametrize("it", [1, 3, 7, 29, 100])
