@@ -95,6 +95,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -111,14 +112,18 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import Graph, StreamingConnectivity, solve  # noqa: E402
+from repro_torch import (Graph, StreamingConnectivity, solve,  # noqa: E402
+                         solve_batch, stack_graphs)
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.connectivity import SAMPLING_STRATEGIES, minmap  # noqa: E402
 from repro_torch.connectivity import fastsv  # noqa: E402
 from repro_torch.connectivity import oocore  # noqa: E402
 from repro_torch.connectivity import (  # noqa: E402
     OutOfCoreContraction, oocore_with_recovery, stream_with_recovery)
+from repro_torch.connectivity import contour  # noqa: E402
 from repro_torch.connectivity import frontier as fr  # noqa: E402
+from repro_torch.connectivity import planner  # noqa: E402
+from repro_torch.connectivity.solvers import device_degree_skew  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.contour_mm import blocked, kernel, ops  # noqa: E402
@@ -211,6 +216,17 @@ PINNED_PROBE_BYTES = 8 << 20
 # the time the out-of-core and recovery phases are meant to take together
 # at most (reported, as STREAM_SERVE_BUDGET_S)
 OOCORE_BUDGET_S = 120.0
+# the fleet path (solve_batch): 1024 x rmat(12,16) and 256 x
+# delaunay_like(14) (4,194,304 labels each fleet), and a ragged fleet of
+# 512 graphs of 2**8..2**14 vertices (drawn with BATCH_SEED) over rmat,
+# path, grid and star; each graph seeded by its place in its fleet
+BATCH_RMAT = {"count": 1024, "scale": 12}
+BATCH_DELAUNAY = {"count": 256, "scale": 14}
+BATCH_RAGGED = {"count": 512, "scales": (8, 14)}
+BATCH_SEED = 21
+# the time the fleet and auto phases are meant to take together at most
+# (reported, as the other budgets)
+BATCH_AUTO_BUDGET_S = 90.0
 # kernel against plain version in float32, (atol, rtol, rms_rel) by working
 # type: every element within |a - b| <= atol + rtol * |b|, and the whole
 # output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
@@ -254,6 +270,23 @@ REPLACES = {
                     "(rmsnorm_rows)",
     "flash_mha": "src/repro/kernels/flash_attention/kernel.py:77 "
                  "(flash_mha)",
+    # the fleet's entry points: the same TPU kernels and XLA steps, which
+    # the reference's solve_batch runs under jax.vmap
+    # (src/repro/connectivity/batch.py:109)
+    "fused_relax_batched": "src/repro/kernels/contour_mm/blocked.py:236 "
+                           "(fused_relax_pallas, vmapped by solve_batch)",
+    "scatter_min_batched": "src/repro/kernels/contour_mm/blocked.py:92 "
+                           "(binned_scatter_min_pallas, vmapped by "
+                           "solve_batch)",
+    "converged_early_batched": "src/repro/connectivity/minmap.py:88 "
+                               "(converged_early, vmapped by solve_batch; "
+                               "no Pallas counterpart, XLA-fused)",
+    "labels_unchanged_batched": "src/repro/connectivity/contour.py:238 "
+                                "(jnp.all(L_new == L), vmapped by "
+                                "solve_batch; no Pallas counterpart)",
+    "pointer_jump_batched": "src/repro/connectivity/minmap.py:75 "
+                            "(pointer_jump, vmapped by solve_batch; no "
+                            "Pallas counterpart)",
 }
 SOURCE = "src/repro_torch/kernels/contour_mm/csrc/contour_mm.cu"
 MM2_SOURCE = "src/repro_torch/kernels/contour_mm/csrc/mm2.cu"
@@ -272,7 +305,12 @@ WRAPPERS = {"fused_relax": blocked.fused_relax,
             "labels_unchanged": cv.labels_unchanged,
             "pointer_jump": cv.pointer_jump,
             "rmsnorm_rows": rms_kernel.rmsnorm_rows,
-            "flash_mha": flash_kernel.flash_mha}
+            "flash_mha": flash_kernel.flash_mha,
+            "fused_relax_batched": blocked.fused_relax_batched,
+            "scatter_min_batched": blocked.scatter_min_batched,
+            "converged_early_batched": cv.converged_early_batched,
+            "labels_unchanged_batched": cv.labels_unchanged_batched,
+            "pointer_jump_batched": cv.pointer_jump_batched}
 KERNEL_NAMES = tuple(WRAPPERS)
 
 
@@ -2009,6 +2047,12 @@ def phase_oocore(rmat_host: tuple, mesh_host: tuple, ref_rmat: np.ndarray,
         mesh_name, gen.ArrayChunks(src, dst, n, OOCORE_MESH_CHUNK),
         lambda: (Graph.from_numpy(src, dst, n, device=DEVICE), mesh_ref),
         ceiling)
+    # the fold keeps at most three label arrays (n is 16 buckets here, so
+    # the labels dominate): the run's peak within the estimate
+    if row["peak_above_estimate"]:
+        raise AssertionError(f"oocore {mesh_name}: peak "
+                             f"{row['peak_bytes_of_the_run']} above the "
+                             f"estimate {row['peak_bytes_estimate']}")
     rows.append(row)
     emit(row)
 
@@ -2114,6 +2158,415 @@ def phase_recovery(mesh_host: tuple, mesh_out: tuple, mesh_rounds: int,
                  "launches": launch_counts()})
     emit(rows[-1])
     return rows
+
+
+def fleet_graphs(kind: str) -> list:
+    """A fleet's graphs on the host (``device="cpu"``): ``rmat``,
+    ``delaunay`` or ``ragged`` (``BATCH_*``)."""
+    if kind == "rmat":
+        return [gen.rmat(BATCH_RMAT["scale"], edge_factor=RMAT_EDGE_FACTOR,
+                         seed=i, device="cpu")
+                for i in range(BATCH_RMAT["count"])]
+    if kind == "delaunay":
+        # delaunay_like is a grid: every seed gives the same graph
+        one = gen.delaunay_like(BATCH_DELAUNAY["scale"], device="cpu")
+        return [one] * BATCH_DELAUNAY["count"]
+    lo, hi = BATCH_RAGGED["scales"]
+    scales = np.random.default_rng(BATCH_SEED).integers(
+        lo, hi + 1, BATCH_RAGGED["count"])
+    make = (lambda s, i: gen.rmat(s, edge_factor=RMAT_EDGE_FACTOR, seed=i,
+                                  device="cpu"),
+            lambda s, i: gen.path(1 << s, seed=i, device="cpu"),
+            lambda s, i: gen.delaunay_like(s, device="cpu"),
+            lambda s, i: gen.star(1 << s, seed=i, device="cpu"))
+    return [make[i % 4](int(s), i) for i, s in enumerate(scales)]
+
+
+def fleet_name(kind: str) -> str:
+    if kind == "rmat":
+        return (f"{BATCH_RMAT['count']} x rmat({BATCH_RMAT['scale']},"
+                f"{RMAT_EDGE_FACTOR})")
+    if kind == "delaunay":
+        return (f"{BATCH_DELAUNAY['count']} x "
+                f"delaunay_like({BATCH_DELAUNAY['scale']})")
+    lo, hi = BATCH_RAGGED["scales"]
+    return (f"ragged {BATCH_RAGGED['count']} x 2^{lo}..2^{hi} "
+            "(rmat, path, grid, star)")
+
+
+def on_card(g) -> Graph:
+    return Graph(src=g.src.to(DEVICE), dst=g.dst.to(DEVICE),
+                 n_vertices=g.n_vertices)
+
+
+def drive_fleet(kind: str) -> tuple:
+    """One fleet through ``solve_batch`` on the card: labels of every lane
+    equal scipy's, the ``torch`` backend's fleet bit for bit (launching no
+    kernel), the loop of solo solves lane for lane; cold and warm walls,
+    the solo loop's wall, iterations, host syncs, launches and the card's
+    idle share.  Returns the printed line and the batched graph."""
+    t0 = time.perf_counter()
+    graphs = fleet_graphs(kind)
+    host, sizes = stack_graphs(graphs, with_sizes=True)
+    refs, seen = [], {}
+    for g in graphs:
+        if id(g) not in seen:
+            seen[id(g)] = scipy_labels_of(*g.to_numpy())
+        refs.append(seen[id(g)])
+    batched = on_card(host)
+    solo = [on_card(g) for g in graphs]
+    setup_s = time.perf_counter() - t0
+    lanes_b, m_pad = (int(x) for x in batched.src.shape)
+    name = fleet_name(kind)
+
+    def run(**options):
+        return solve_batch(batched, batch_sizes=sizes, **options)
+
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run()
+    sync()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    for k in ("fused_relax_batched", "converged_early_batched",
+              "pointer_jump_batched"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: did not launch {k}")
+    single = {k: v for k, v in launches.items()
+              if v and not k.endswith("_batched")}
+    if single:
+        raise AssertionError(f"{name}: the fleet launched {single}")
+    if not bool(res.converged.all()):
+        raise AssertionError(f"{name}: a lane did not converge")
+    for i, lane in enumerate(res.unstack()):
+        if not np.array_equal(lane.labels.cpu().numpy(), refs[i]):
+            raise AssertionError(f"{name}: lane {i} differs from scipy")
+    warm_ms = host_ms(run) if lanes_b * m_pad < (1 << 26) else None
+    if warm_ms is None:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+            sync()
+        warm_ms = (time.perf_counter() - t0) / 3 * 1e3
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    plain = run(backend="torch")
+    sync()
+    plain_cold_ms = (time.perf_counter() - t0) * 1e3
+    if any(launch_counts().values()):
+        raise AssertionError(f"{name}: the torch backend's fleet launched "
+                             f"{launch_counts()}")
+    same_result(res, plain, f"{name}: the torch backend's fleet")
+    t0 = time.perf_counter()
+    run(backend="torch")
+    sync()
+    plain_warm_ms = (time.perf_counter() - t0) * 1e3
+    # the loop of solo solves, each graph as it is (its own n and m)
+    for g in solo[:2]:
+        solve(g)
+    sync()
+    t0 = time.perf_counter()
+    outs = [solve(g) for g in solo]
+    sync()
+    solo_ms = (time.perf_counter() - t0) * 1e3
+    its = res.iterations.cpu()
+    for i, (one, lane) in enumerate(zip(outs, res.unstack())):
+        if int(one.iterations) != int(its[i]) or not torch.equal(
+                one.labels, lane.labels):
+            raise AssertionError(f"{name}: lane {i} differs from its solo "
+                                 "solve")
+    del outs
+    syncs = host_syncs(run)
+    idle = device_idle(run)
+    real_m = sum(g.n_edges for g in graphs)
+    row = {"phase": "batch_path", "fleet": name, "B": lanes_b,
+           "n_pad": batched.n_vertices, "m_pad": m_pad,
+           "labels": lanes_b * batched.n_vertices,
+           "sum_n": sum(sizes), "padded_edges": lanes_b * m_pad,
+           "real_edges": real_m,
+           "padding_x": lanes_b * m_pad / max(real_m, 1),
+           "batched_cold_ms": cold_ms, "batched_warm_ms": warm_ms,
+           "solo_loop_ms": solo_ms,
+           "solo_over_batched": solo_ms / warm_ms,
+           "torch_backend_cold_ms": plain_cold_ms,
+           "torch_backend_warm_ms": plain_warm_ms,
+           "iterations_max": int(its.max()),
+           "iterations_mean": float(its.float().mean()),
+           "host_syncs": syncs["total"], "host_syncs_sites": syncs["sites"],
+           "profiled": idle, "launches": launches,
+           "provenance": list(res.provenance or ()),
+           "setup_s": setup_s}
+    emit(row)
+    return row, batched, sizes
+
+
+def fleet_check_scale() -> dict:
+    """Eight small graphs and a lane warm-started with an edge-free chain
+    (it changes if the lane is not frozen once its test passes): the
+    card's fleet against the CPU's, bit for bit, in every variant."""
+    def fleet(device):
+        gs = [gen.rmat(8, edge_factor=RMAT_EDGE_FACTOR, seed=1,
+                       device=device),
+              gen.path(200, seed=2, device=device),
+              gen.grid2d(12, 20, device=device),
+              gen.star(100, seed=3, device=device),
+              gen.rmat(7, edge_factor=4, seed=4, device=device),
+              gen.path(50, seed=5, device=device),
+              gen.grid2d(5, 5, device=device),
+              gen.star(64, seed=6, device=device)]
+        n = max(g.n_vertices for g in gs)
+        warm = [torch.arange(g.n_vertices, dtype=torch.int32, device=device)
+                for g in gs]
+        chain = torch.arange(n, dtype=torch.int32, device=device)
+        chain[100:] -= 1
+        warm[6] = chain
+        return gs, warm
+
+    card, card_warm = fleet(DEVICE)
+    cpu, cpu_warm = fleet("cpu")
+    checks = 0
+    reset_launch_counts()
+    for variant in contour.VARIANTS + ("C-3",):
+        for warm in (False, True):
+            a = solve_batch(card, variant=variant,
+                            warm_start=card_warm if warm else None)
+            b = solve_batch(cpu, variant=variant,
+                            warm_start=cpu_warm if warm else None)
+            same_result(a, b, f"fleet check scale {variant} warm={warm}: "
+                              "card vs cpu")
+            checks += 1
+    out = {"phase": "batch_path", "check": "card_vs_cpu", "B": len(card),
+           "cases": checks, "launches": launch_counts()}
+    emit(out)
+    return out
+
+
+def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
+    """The fleet's entry points against their plain versions on the rmat
+    fleet (identity labels, one C-2 iteration, the fixed point; no lane
+    frozen, and every other lane frozen), and their entries of the
+    kernels line: times at the first sweep (K1, K2's order-1 stream), the
+    fixed point (K6's full passes) and K7 after an L2 flush."""
+    lanes_b, m = (int(x) for x in batched.src.shape)
+    n = batched.n_vertices
+    src, dst = batched.src, batched.dst
+    off = blocked.lane_offsets(lanes_b, n, DEVICE)
+    L0 = (torch.arange(n, dtype=torch.int32, device=DEVICE)
+          .expand(lanes_b, n) + off).reshape(-1).contiguous()
+    L1 = cv.pointer_jump_batched_plain(
+        blocked.fused_relax_batched_plain(L0, src, dst, n), n)
+    Lf = (fixed + off).reshape(-1).contiguous()
+    half = torch.zeros((lanes_b, 4), dtype=torch.int32, device=DEVICE)
+    half[1::2, cv.DONE] = 1
+    err = Counter()
+    checks = 0
+    for L in (L0, L1, Lf):
+        for lanes in (None, half):
+            err["fused_relax_batched"] = max(
+                err["fused_relax_batched"], max_abs_err(
+                    blocked.fused_relax_batched(L, src, dst, n, lanes),
+                    blocked.fused_relax_batched_plain(L, src, dst, n,
+                                                      lanes)))
+            t, v = contour.mm_update_stream_batched(L, src, dst, n, 1)
+            err["scatter_min_batched"] = max(
+                err["scatter_min_batched"], max_abs_err(
+                    blocked.scatter_min_batched(L, t, v, n, lanes),
+                    blocked.scatter_min_batched_plain(L, t, v, n, lanes)))
+            del t, v
+            err["pointer_jump_batched"] = max(
+                err["pointer_jump_batched"], max_abs_err(
+                    cv.pointer_jump_batched(L, n, lanes),
+                    cv.pointer_jump_batched_plain(L, n, lanes)))
+            jumped = cv.pointer_jump_batched_plain(L, n)
+            for key, fn, plain, args in (
+                    ("converged_early_batched", cv.converged_early_batched,
+                     cv.converged_early_batched_plain, (L, src, dst, n)),
+                    ("labels_unchanged_batched", cv.labels_unchanged_batched,
+                     cv.labels_unchanged_batched_plain, (jumped, L, n))):
+                a = cv.fleet_state(lanes_b, DEVICE)
+                b = cv.fleet_state(lanes_b, DEVICE)
+                if lanes is not None:
+                    a.lanes.copy_(lanes)
+                    b.lanes.copy_(lanes)
+                fn(*args, a)
+                plain(*args, b)
+                err[key] = max(err[key], max_abs_err(a.lanes, b.lanes),
+                               max_abs_err(a.fleet[:2], b.fleet[:2]))
+            del jumped
+            checks += 1
+    sync()
+    if any(err.values()):
+        raise AssertionError(f"the fleet's kernels differ from their plain "
+                             f"versions: {dict(err)}")
+    t1, v1 = contour.mm_update_stream_batched(L0, src, dst, n, 1)
+    t1_long = t1.long()
+    k = int(t1.shape[0])
+    state = cv.fleet_state(lanes_b, DEVICE)
+
+    def fresh():
+        state.lanes.zero_()
+        state.fleet.zero_()
+
+    Lf_copy = Lf.clone()
+    shape = {"B": lanes_b, "n": n, "m": m, "labels": lanes_b * n}
+    entries = {
+        "fused_relax_batched": {
+            "source": SOURCE, "state": "identity (the first sweep)",
+            "ms": time_ms(lambda: blocked.fused_relax_batched(L0, src, dst,
+                                                              n)),
+            "plain_ms": time_ms(lambda: blocked.fused_relax_batched_plain(
+                L0, src, dst, n)),
+            "library_ms": None,
+            **bound(8 * lanes_b * n + 8 * lanes_b * m, 5 * lanes_b * m)},
+        "scatter_min_batched": {
+            "source": SOURCE, "state": "identity, order-1 stream",
+            "updates": k,
+            "ms": time_ms(lambda: blocked.scatter_min_batched(L0, t1, v1,
+                                                              n)),
+            "plain_ms": time_ms(lambda: blocked.scatter_min_batched_plain(
+                L0, t1, v1, n)),
+            "library_ms": time_ms(
+                lambda: L0.scatter_reduce(0, t1_long, v1, "amin")),
+            **bound(8 * lanes_b * n + 8 * k, k)},
+        "converged_early_batched": {
+            "source": CONVERGED_SOURCE, "state": "fixed point, every lane",
+            "ms": time_each_ms(lambda: cv.converged_early_batched(
+                Lf, src, dst, n, state), setup=fresh),
+            "plain_ms": time_each_ms(lambda: cv.converged_early_batched_plain(
+                Lf, src, dst, n, state), setup=fresh),
+            "library_ms": None,
+            **bound(8 * lanes_b * m + 4 * lanes_b * n, 3 * lanes_b * m)},
+        "labels_unchanged_batched": {
+            "source": CONVERGED_SOURCE, "state": "fixed point, every lane",
+            "ms": time_each_ms(lambda: cv.labels_unchanged_batched(
+                Lf, Lf_copy, n, state), setup=fresh),
+            "plain_ms": time_each_ms(
+                lambda: cv.labels_unchanged_batched_plain(
+                    Lf, Lf_copy, n, state), setup=fresh),
+            "library_ms": None,
+            **bound(8 * lanes_b * n, lanes_b * n)},
+        "pointer_jump_batched": {
+            "source": CONVERGED_SOURCE, "state": "identity, L2 flushed",
+            "ms": time_each_ms(lambda: cv.pointer_jump_batched(L0, n),
+                               setup=flush_l2),
+            "plain_ms": time_each_ms(
+                lambda: cv.pointer_jump_batched_plain(L0, n),
+                setup=flush_l2),
+            "library_ms": None,
+            **bound(8 * lanes_b * n, lanes_b * n)},
+    }
+    emit({"phase": "batch_kernels_vs_plain", "checks": checks,
+          "shape": shape,
+          "times": {k: {f: e[f] for f in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms")}
+                    for k, e in entries.items()}})
+    return {name: {"name": name, "route": "cuda",
+                   "replaces": REPLACES[name], "max_abs_err": err[name],
+                   "shape": shape, **entry}
+            for name, entry in entries.items()}
+
+
+def phase_batch() -> tuple:
+    """The fleet path (module docstring); returns the printed lines and
+    the kernels line's entries of the fleet's entry points."""
+    rows = []
+    row, batched, sizes = drive_fleet("rmat")
+    rows.append(row)
+    # the order-1 sweeps: C-11mm's warm-up runs K2's fleet entry point
+    reset_launch_counts()
+    res = solve_batch(batched, batch_sizes=sizes, variant="C-11mm")
+    sync()
+    launches = launch_counts()
+    if launches["scatter_min_batched"] <= 0:
+        raise AssertionError("the fleet's C-11mm did not launch "
+                             "scatter_min_batched")
+    same_result(res, solve_batch(batched, batch_sizes=sizes,
+                                 variant="C-11mm", backend="torch"),
+                "the fleet's C-11mm against the torch backend's")
+    rows.append({"phase": "batch_path", "fleet": row["fleet"],
+                 "variant": "C-11mm", "launches": launches,
+                 "iterations_max": int(res.iterations.max())})
+    emit(rows[-1])
+    fixed = solve_batch(batched).labels
+    kernels = fleet_kernels(batched, fixed)
+    del batched, fixed, res
+    for kind in ("delaunay", "ragged"):
+        row, batched, _ = drive_fleet(kind)
+        rows.append(row)
+        del batched
+    rows.append(fleet_check_scale())
+    return rows, kernels
+
+
+def drive_auto(g, name: str, reference: np.ndarray, dense_ms: float) -> dict:
+    """``solve(g, algorithm="auto")`` on the card: the cost model's choice
+    and the skew computed where the edges lie, labels equal to scipy's,
+    the wall beside dense C-2's."""
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(g, algorithm="auto")
+    sync()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    if not np.array_equal(res.labels.cpu().numpy(), reference):
+        raise AssertionError(f"auto {name}: labels differ from scipy")
+    skew = device_degree_skew(g.src, g.dst, g.n_vertices)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        solve(g, algorithm="auto")
+        sync()
+    warm_ms = (time.perf_counter() - t0) / 3 * 1e3
+    out = {"phase": "auto_path", "graph": name, "n": g.n_vertices,
+           "m": g.n_edges, "choice": res.provenance[0],
+           "provenance": list(res.provenance), "degree_skew": skew,
+           "avg_degree": 2 * g.n_edges / g.n_vertices,
+           "skew_ms": host_ms(lambda: device_degree_skew(
+               g.src, g.dst, g.n_vertices)),
+           "auto_cold_ms": cold_ms, "auto_warm_ms": warm_ms,
+           "dense_c2_warm_ms": dense_ms, "x_dense_c2": warm_ms / dense_ms,
+           "iterations": int(res.iterations),
+           "host_syncs": host_syncs(
+               lambda: solve(g, algorithm="auto"))["total"],
+           "launches": launches}
+    emit(out)
+    return out
+
+
+def drive_autotune(g, name: str, reference: np.ndarray) -> dict:
+    """``planner.autotune`` on ``g`` into a cache under a temporary
+    ``REPRO_TORCH_TUNING_CACHE``: its timings table, then one solve that
+    records ``origin=tuned``."""
+    env = planner.cache.ENV_CACHE_PATH
+    saved = os.environ.get(env)
+    with tempfile.TemporaryDirectory() as d:
+        os.environ[env] = str(Path(d) / "tuning.json")
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            plan, timings = planner.autotune(g)
+            tune_s = time.perf_counter() - t0
+            res = solve(g, sampling=2, compact_every=2)
+            sync()
+            launches = launch_counts()
+            entry = planner.cache.entries()
+        finally:
+            if saved is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = saved
+    if not res.provenance[0].startswith(f"plan:{plan.backend} origin=tuned"):
+        raise AssertionError(f"autotune {name}: the solve after tuning "
+                             f"recorded {res.provenance[0]}")
+    if not np.array_equal(res.labels.cpu().numpy(), reference):
+        raise AssertionError(f"autotune {name}: labels differ from scipy")
+    out = {"phase": "auto_path", "graph": name, "check": "autotune",
+           "timings_s": timings, "winner": planner.plan_label(plan),
+           "tune_s": tune_s, "provenance": list(res.provenance),
+           "cache_keys": sorted(entry), "launches": launches}
+    emit(out)
+    return out
 
 
 def float_err(a: torch.Tensor, b: torch.Tensor, tol: tuple) -> dict:
@@ -2626,6 +3079,30 @@ def main(argv=None) -> int:
     runs += frontier_runs + [async_frontier] + float_runs
     emit({"phase": "frontier_path_done",
           "seconds": time.perf_counter() - t0})
+
+    # 7b. fleets of small graphs through solve_batch, then algorithm="auto"
+    # on the main path's graphs and the autotuner on the async rmat
+    stream_name = f"rmat({args.async_rmat_scale},{RMAT_EDGE_FACTOR})"
+    t0 = time.perf_counter()
+    batch_runs, batch_kernels = phase_batch()
+    kernels.update(batch_kernels)
+    batch_s = time.perf_counter() - t0
+    emit({"phase": "batch_path_done", "seconds": batch_s})
+    t0 = time.perf_counter()
+    auto_runs = [
+        drive_auto(delaunay, delaunay_name, ref_delaunay,
+                   runs[0]["loop_cost"]["solve_ms"]),
+        drive_auto(rmat, rmat_name, ref_rmat,
+                   runs[1]["loop_cost"]["solve_ms"]),
+        # the async path's rmat(20,16)
+        drive_autotune(async_graphs[stream_name], stream_name,
+                       ref_async[stream_name])]
+    auto_s = time.perf_counter() - t0
+    runs += batch_runs + auto_runs
+    emit({"phase": "auto_path_done", "seconds": auto_s,
+          "batch_and_auto_s": batch_s + auto_s,
+          "budget_s": BATCH_AUTO_BUDGET_S,
+          "within_budget": batch_s + auto_s <= BATCH_AUTO_BUDGET_S})
     # the out-of-core and recovery paths take the async graphs' edges from
     # the host
     async_host = {name: g.to_numpy() for name, g in async_graphs.items()}

@@ -20,6 +20,14 @@
     solve(graph, algorithm="lp")
     solve(graph, algorithm="connectit")         # on the host
 
+    # the cost model picks the strategy; planner.autotune measures plans
+    solve(graph, algorithm="auto")
+
+Fleets of small graphs, padded into one batch::
+
+    batch = solve_batch([g1, g2, g3])
+    for r in batch.unstack(): ...
+
 Out-of-core (edges stream from host memory; the card holds the O(n)
 labels plus one chunk)::
 
@@ -41,7 +49,10 @@ from repro_torch.connectivity.registry import (
     solver_specs,
 )
 from repro_torch.connectivity import solvers as _solvers  # registers them
+from repro_torch.connectivity import planner
+from repro_torch.connectivity.planner import StrategyChoice, resolve_strategy
 from repro_torch.connectivity.solve import solve
+from repro_torch.connectivity.batch import solve_batch, stack_graphs
 from repro_torch.connectivity.streaming import StreamingConnectivity
 from repro_torch.connectivity.oocore import OutOfCoreContraction, solve_chunks
 from repro_torch.connectivity.resilience import (
@@ -66,15 +77,20 @@ __all__ = [
     "SimulatedFault",
     "SolveOptions",
     "SolverSpec",
+    "StrategyChoice",
     "StreamingConnectivity",
     "VARIANTS",
     "get_solver",
     "list_solvers",
     "oocore_with_recovery",
+    "planner",
     "register_sampling_strategy",
     "register_solver",
+    "resolve_strategy",
     "solve",
+    "solve_batch",
     "solve_chunks",
     "solver_specs",
+    "stack_graphs",
     "stream_with_recovery",
 ]

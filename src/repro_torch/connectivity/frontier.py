@@ -40,7 +40,6 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.connectivity import minmap as lab
 from repro_torch.kernels.contour_mm import converged as cv
 
 # The deterministic sampling prefix is m // SAMPLE_PREFIX_DENOM edges (at
@@ -282,16 +281,32 @@ def apply_compaction(
     return src, dst, active_m
 
 
-def compress_full(L: torch.Tensor,
-                  jump: Callable = cv.pointer_jump) -> torch.Tensor:
-    """Pointer-jump to the star-forest fixed point (one flag read per
-    round; ``jump`` is a backend's round, as :func:`masked_converged_early`
-    takes its test).  Vertices retired by contraction hang off pointer
-    chains of any depth, so the adaptive path ends here instead of with
-    the dense schedule's single jump."""
-    while not bool(lab.is_star_forest(L)):
-        L = jump(L)
-    return L
+def compress_full(L: torch.Tensor, loop: Optional[cv.LoopOps] = None, *,
+                  owned: bool = False) -> torch.Tensor:
+    """Pointer-jump to the star-forest fixed point.  Vertices retired by
+    contraction hang off pointer chains of any depth, so the adaptive
+    path ends here instead of with the dense schedule's single jump.
+
+    Each round is a backend's jump and its no-change test (``loop``,
+    ``converged.loop_ops``; default the kernels'), one flag read a round:
+    under the labelling invariant ``L[v] <= v`` (every solve's labels keep
+    it: ``minmap.resolve_init_labels`` clamps, sweeps and jumps only lower
+    labels) ``min(L, L[L]) == L`` exactly where ``L[L] == L``, so the
+    first round whose jump changes nothing finds the star forest, with
+    the labels and the rounds of ``while not is_star_forest(L): L =
+    jump(L)``, and no gather of ``L[L]`` beside it.  The rounds alternate
+    between two buffers: with ``owned`` the first is ``L`` itself (the
+    caller's to overwrite), so the loop holds one label array besides
+    ``L``, else two."""
+    loop = loop or cv.loop_ops("cuda")
+    spare = None
+    while True:
+        jumped = (loop.pointer_jump(L) if spare is None
+                  else loop.pointer_jump(L, out=spare))
+        if bool(loop.labels_unchanged(jumped, L)):
+            return L
+        spare = L if owned else None
+        L, owned = jumped, True
 
 
 @dataclasses.dataclass
@@ -308,6 +323,16 @@ class FrontierState:
     # the backend's test and jump round (converged.loop_ops)
     loop: cv.LoopOps = dataclasses.field(
         default_factory=lambda: cv.loop_ops("cuda"))
+    # whether L is the loop's own (made by a step), which a later step and
+    # the final compression may overwrite; the caller's labels never are
+    owned: bool = False
+
+
+def compress_state(s: FrontierState) -> None:
+    """:func:`compress_full` of the state's labels, in place."""
+    L = compress_full(s.L, s.loop, owned=s.owned)
+    s.owned = s.owned or L is not s.L
+    s.L = L
 
 
 def advance(s: FrontierState, step, *, sample_m: int, sampling: int,
@@ -317,7 +342,9 @@ def advance(s: FrontierState, step, *, sample_m: int, sampling: int,
     """One iteration of the loop, on ``s`` in place.
 
     ``step(L, it, src, dst, limit)`` sweeps the first ``limit`` edges of
-    ``sweep`` (default: the state's edges).  The sweep, the convergence
+    ``sweep`` (default: the state's edges); once the state owns its
+    labels it is also given ``spare=L``, a buffer it may overwrite after
+    its sweep (``contour._make_step``).  The sweep, the convergence
     check over the active prefix, the iteration count and the compaction
     schedule are those of the reference's loop body; the compaction is
     left out once the loop is about to end, since nothing reads the edges
@@ -325,7 +352,12 @@ def advance(s: FrontierState, step, *, sample_m: int, sampling: int,
     """
     limit = frontier_limit(s.it, s.active_m, sample_m, sampling)
     src, dst = sweep if sweep is not None else (s.src, s.dst)
-    s.L = step(s.L, s.it, src, dst, limit)
+    # once the loop owns its labels the step may overwrite them after its
+    # sweep (``spare``): the loop then holds two label arrays besides the
+    # caller's
+    L = s.L
+    s.L = step(L, s.it, src, dst, limit, **({"spare": L} if s.owned else {}))
+    s.owned = s.owned or s.L is not L
     s.visited = np.float32(s.visited + np.float32(limit))
     s.done = bool(masked_converged_early(s.L, s.src, s.dst, s.active_m,
                                          s.loop.converged_early))
@@ -349,6 +381,7 @@ def adaptive_fixpoint(
     active_m0: Optional[int] = None,
     sample_m0: Optional[int] = None,
     loop: Optional[cv.LoopOps] = None,
+    owned: bool = False,
 ):
     """Run ``step`` to the connectivity fixed point, work-adaptively (the
     masked realisation: the edge arrays keep their length).
@@ -361,7 +394,9 @@ def adaptive_fixpoint(
     ``edges_visited``.  ``sample_m0`` is the sample width (default
     :func:`sample_prefix_m` of the whole length), as a strategy's
     :func:`prepare_sampling` gives it.  ``loop`` is the backend's test
-    and jump round (default the kernels').
+    and jump round (default the kernels').  ``owned``: ``L0`` is the
+    caller's to overwrite (a copy it made for the loop), so the first
+    step may reuse it; otherwise it is left as it is.
 
     Returns ``(labels, iterations, converged, edges_visited)``: an int
     and a bool beside the labels, and a float32 counter.
@@ -370,9 +405,10 @@ def adaptive_fixpoint(
     sample_m = sample_prefix_m(m) if sample_m0 is None else int(sample_m0)
     s = FrontierState(L=L0, src=src, dst=dst,
                       active_m=m if active_m0 is None else int(active_m0),
-                      loop=loop or cv.loop_ops("cuda"))
+                      loop=loop or cv.loop_ops("cuda"), owned=owned)
     while not s.done and s.it < max_iters:
         advance(s, step, sample_m=sample_m, sampling=sampling,
                 compact_every=compact_every, n_vertices=n_vertices,
                 max_iters=max_iters)
-    return compress_full(s.L, s.loop.pointer_jump), s.it, s.done, s.visited
+    compress_state(s)
+    return s.L, s.it, s.done, s.visited

@@ -470,8 +470,8 @@ class OutOfCoreContraction:
 
         if int(self.survivors_src.shape[0]) == 0:
             # every edge retired: the star forest is the global fixpoint
-            self.labels = fr.compress_full(
-                self.labels, cv.loop_ops(self.backend).pointer_jump)
+            self.labels = fr.compress_full(self.labels,
+                                           cv.loop_ops(self.backend))
             return (self.labels, *counters(True))
         from repro_torch.connectivity.solvers import _contour_solver
         graph = Graph.from_numpy(self.survivors_src, self.survivors_dst,

@@ -6,11 +6,13 @@ fields the port honours:
 * **algorithm selection** — ``algorithm`` (registry name or alias) and
   ``variant`` (Contour's ``C-Syn``/``C-1``/``C-2``/``C-m``/``C-11mm``/
   ``C-1m1m`` or a literal ``C-<h>``);
-* **kernel dispatch** — ``backend``: ``"auto"`` (the heuristic table,
-  which picks ``"cuda"``), ``"cuda"`` (the synchronous sweep kernels),
-  ``"cuda_async"`` (the in-order asynchronous 2-order sweep kernel; the
-  reference's scalar ``"pallas"``) or ``"torch"`` (plain torch
-  scatter-min);
+* **kernel dispatch** — ``backend``: ``"auto"`` (a tuned plan from the
+  tuning cache, else the heuristic table, which picks ``"cuda"``),
+  ``"cuda"`` (the synchronous sweep kernels), ``"cuda_async"`` (the
+  in-order asynchronous 2-order sweep kernel; the reference's scalar
+  ``"pallas"``) or ``"torch"`` (plain torch scatter-min); ``plan`` pins
+  a whole :class:`~repro_torch.connectivity.planner.ExecutionPlan`
+  (``planner.resolve_plan``: pinned > cache > table);
 * **work schedule** — ``sampling``/``compact_every`` enable the
   work-adaptive frontier of ``connectivity.frontier``; both 0 (the
   default) is the paper's dense schedule.  ``sampling_strategy`` picks
@@ -26,8 +28,8 @@ fields the port honours:
   folded per chunk per round).
 
 The reference's other fields (``mesh``, ``edge_axes``, ``local_rounds``,
-``plan``, ``vmem_limit_bytes``) come with the slices that honour them,
-and setting one fails with a ``TypeError``.
+``vmem_limit_bytes``) come with the slices that honour them, and
+setting one fails with a ``TypeError``.
 ``vmem_limit_bytes`` bounded the TPU scalar kernel's whole-L ceiling,
 which ``cuda_async`` does not have.  ``kernel_fallback`` is left out
 on purpose: a kernel that fails on the card raises; it is never retried
@@ -54,6 +56,7 @@ class SolveOptions:
     algorithm: str = "contour"
     variant: Optional[str] = None          # per-algorithm default if None
     backend: str = "auto"
+    plan: Optional[Any] = None             # a pinned ExecutionPlan
     max_iters: Optional[int] = None        # per-algorithm default if None
     warmup: int = 2                        # C-11mm's C-1 prefix length
     async_compress: int = 1                # in-iteration pointer-jump rounds

@@ -50,7 +50,7 @@ def _stage(s: fr.FrontierState, step, *, sampling: int, compact_every: int,
         fr.advance(s, step, sample_m=fr.sample_prefix_m(m),
                    sampling=sampling, compact_every=compact_every,
                    n_vertices=n_vertices, max_iters=max_iters)
-    s.L = fr.compress_full(s.L, s.loop.pointer_jump)
+    fr.compress_state(s)
 
 
 def _shrink(s: fr.FrontierState) -> bool:
@@ -99,8 +99,9 @@ def staged_adaptive_labels(
     step = _make_step(variant, warmup, async_compress, backend, fuse)
     device = src.device
     L = lab.resolve_init_labels(init_labels, n_vertices, device, src.dtype)
+    # L is resolve_init_labels' new array: the loop's to overwrite
     s = fr.FrontierState(L=L, src=src, dst=dst, active_m=int(src.shape[0]),
-                         loop=cv.loop_ops(backend))
+                         loop=cv.loop_ops(backend), owned=True)
     common = dict(sampling=sampling, n_vertices=n_vertices,
                   max_iters=max_iters)
 
@@ -122,7 +123,7 @@ def staged_adaptive_labels(
             fr.advance(s, step, sample_m=sm, compact_every=0, sweep=sample,
                        **common)
         if s.done or s.it >= max_iters:
-            s.L = fr.compress_full(s.L, s.loop.pointer_jump)
+            fr.compress_state(s)
             return result()
         # the filter may have collapsed the frontier: slice straight away
         _shrink(s)

@@ -1,15 +1,15 @@
 """Typed result of a connectivity solve: labels + lazy component views.
 
-The port's counterpart of ``repro.connectivity.result`` for single
-solves (the batched views come with ``solve_batch``).  Labels follow the
-Contour fixed-point convention: the label of a vertex is the minimum
-vertex id of its component.
+The port's counterpart of ``repro.connectivity.result``, for single
+solves and for ``solve_batch``'s batched results (:attr:`is_batched`,
+:meth:`unstack`).  Labels follow the Contour fixed-point convention: the
+label of a vertex is the minimum vertex id of its component.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,12 +20,16 @@ class ComponentResult:
     """Component labels plus solve metadata.
 
     Attributes:
-      labels: int32[n] min-vertex-id component labels.
-      iterations: int32 0-d tensor, the iteration count.
-      converged: bool 0-d tensor — True iff the solver hit the
-        connectivity fixed point before ``max_iters``.
-      edges_visited: float32 0-d tensor, the edges swept
-        (``iterations × m`` on the dense schedule), or None.
+      labels: int32[n] min-vertex-id component labels (``[B, n]`` for a
+        batched solve — see :meth:`unstack`).
+      iterations: int32 0-d tensor (``[B]`` batched), the iteration count.
+      converged: bool 0-d tensor (``[B]`` batched) — True iff the solver
+        hit the connectivity fixed point before ``max_iters``.
+      batch_sizes: per-graph vertex counts of a batched solve (None for a
+        single solve); :meth:`unstack` trims the padding vertices with
+        them.
+      edges_visited: float32 0-d tensor (``[B]`` batched), the edges
+        swept (``iterations × m`` on the dense schedule), or None.
       provenance: tuple of strings recording how the solve ran (the
         resolved ``plan:`` line); None/empty for none.
     """
@@ -33,10 +37,21 @@ class ComponentResult:
     labels: torch.Tensor
     iterations: torch.Tensor
     converged: torch.Tensor
+    batch_sizes: Optional[Tuple[int, ...]] = None
     edges_visited: Optional[torch.Tensor] = None
     provenance: Optional[Tuple[str, ...]] = None
 
     # -- lazy host-side views --------------------------------------------
+    @property
+    def is_batched(self) -> bool:
+        return self.labels.dim() > 1
+
+    def _require_single(self, what: str):
+        if self.is_batched:
+            raise ValueError(
+                f"{what} is per-graph; this is a batched result — call "
+                ".unstack() first")
+
     @functools.cached_property
     def _np_labels(self) -> np.ndarray:
         return self.labels.cpu().numpy()
@@ -44,6 +59,7 @@ class ComponentResult:
     @functools.cached_property
     def _uniq(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(unique labels, dense inverse, counts) — computed once."""
+        self._require_single("component decomposition")
         return np.unique(self._np_labels, return_inverse=True,
                          return_counts=True)
 
@@ -75,6 +91,7 @@ class ComponentResult:
 
     def same_component(self, u, v):
         """True iff ``u`` and ``v`` are connected (vectorises over arrays)."""
+        self._require_single("same_component")
         self._check_ids(u, v)
         L = self._np_labels
         out = L[np.asarray(u)] == L[np.asarray(v)]
@@ -82,6 +99,31 @@ class ComponentResult:
 
     def component_of(self, v):
         """Component id (the component's min vertex id) of ``v``."""
+        self._require_single("component_of")
         self._check_ids(v)
         out = self._np_labels[np.asarray(v)]
         return int(out) if np.ndim(out) == 0 else out
+
+    # -- batched results -------------------------------------------------
+    def unstack(self) -> List["ComponentResult"]:
+        """Split a batched result into per-graph results.
+
+        Padded vertices (ids >= the graph's original ``n_vertices``) are
+        isolated self-labelled singletons; ``batch_sizes`` trims them away
+        so each returned result matches its source graph exactly.
+        """
+        if not self.is_batched:
+            return [self]
+        n_graphs = int(self.labels.shape[0])
+        sizes = self.batch_sizes or (self.labels.shape[1],) * n_graphs
+        return [
+            ComponentResult(
+                labels=self.labels[i, :sizes[i]],
+                iterations=self.iterations[i],
+                converged=self.converged[i],
+                edges_visited=(None if self.edges_visited is None
+                               else self.edges_visited[i]),
+                provenance=self.provenance,
+            )
+            for i in range(n_graphs)
+        ]

@@ -27,6 +27,10 @@ from repro_torch.connectivity.registry import SolverSpec, get_solver
 from repro_torch.connectivity.result import ComponentResult
 from repro_torch.graphs.structs import Graph
 
+# Solver families that resolve an ExecutionPlan at the facade (recorded in
+# provenance); "oocore" also gets the streaming chunk bucket in its plan.
+_PLANNED_SOLVERS = ("contour", "oocore")
+
 
 def resolve_warm_start(warm_start, n_vertices: int):
     """Normalise a warm start to a label tensor (or None).
@@ -39,6 +43,10 @@ def resolve_warm_start(warm_start, n_vertices: int):
     if warm_start is None:
         return None
     if isinstance(warm_start, ComponentResult):
+        if warm_start.is_batched:
+            raise ValueError(
+                "warm_start is a batched ComponentResult; unstack() it or "
+                "use solve_batch")
         warm_start = warm_start.labels
     labels = (warm_start if isinstance(warm_start, torch.Tensor)
               else torch.tensor(np.asarray(warm_start)))
@@ -61,17 +69,20 @@ def solver_output(out):
 
 
 def make_result(labels, iterations, converged, edges_visited=None,
-                provenance=None) -> ComponentResult:
+                batch_sizes=None, provenance=None) -> ComponentResult:
     """Canonical dtype normalisation into a :class:`ComponentResult`.
 
-    int32 iterations, bool converged and a float32 work counter, as 0-d
-    tensors on the labels' device.
+    int32 iterations, bool converged and a float32 work counter, as
+    tensors on the labels' device (0-d, or ``[B]`` for a batched result
+    with its ``batch_sizes``).  The one constructor of ``solve``,
+    ``solve_batch`` and the streaming engine's ``snapshot()``.
     """
     device = labels.device
     return ComponentResult(
         labels=labels,
         iterations=torch.as_tensor(iterations, device=device).to(torch.int32),
         converged=torch.as_tensor(converged, device=device).to(torch.bool),
+        batch_sizes=batch_sizes,
         edges_visited=(None if edges_visited is None else
                        torch.as_tensor(edges_visited, device=device)
                        .to(torch.float32)),

@@ -13,20 +13,27 @@ reference's variants, iteration budgets and capability flags:
   union-find with splicing, on the host);
 * ``oocore``            — out-of-core multi-round contraction
   (``connectivity.oocore``): the edges stream from host memory chunk by
-  chunk, so the problem's size is not bounded by device memory.
+  chunk, so the problem's size is not bounded by device memory;
+* ``auto``              — ConnectIt-style measured dispatch: the
+  planner's cost model (``planner.resolve_strategy``) picks the solver
+  family and sampling strategy per graph from its size and degree skew,
+  and the choice lands in provenance.
 
-The reference's ``distributed`` and ``auto`` come with later slices.
+The reference's ``distributed`` comes with a later slice.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.connectivity import contour as _contour
 from repro_torch.connectivity import fastsv as _fastsv
 from repro_torch.connectivity import lp as _lp
+from repro_torch.connectivity import planner as _planner
 from repro_torch.connectivity import unionfind as _unionfind
 from repro_torch.connectivity.planner import staged as _staged
-from repro_torch.connectivity.planner.heuristics import (
-    heuristic_plan, oocore_chunk_bucket)
-from repro_torch.connectivity.registry import SolverSpec, register_solver
+from repro_torch.connectivity.planner.heuristics import oocore_chunk_bucket
+from repro_torch.connectivity.registry import (SolverSpec, get_solver,
+                                               register_solver)
 from repro_torch.graphs.generators import ArrayChunks
 
 # Registry names that resolve to the out-of-core solver (and therefore
@@ -37,15 +44,17 @@ _OOCORE_NAMES = ("oocore", "out_of_core")
 def resolve_backend_plan(n_vertices: int, n_edges: int, device, opts):
     """The plan a solve of this size on ``device`` runs under.
 
-    ``backend="auto"`` takes the heuristic table's plan; an explicit
-    backend is substituted into it, so the plan recorded in provenance is
-    the one that ran.  For the out-of-core solver the plan also carries
-    the streaming chunk bucket (``chunk_bucket``).
+    Resolution goes through :func:`planner.resolve_plan`: a plan pinned
+    in ``opts.plan`` wins; otherwise ``backend="auto"`` consults the
+    tuning cache and then the heuristic table, while an explicit backend
+    takes the table with that backend substituted, so the plan recorded
+    in provenance is the one that ran.  For the out-of-core solver the
+    plan also carries the streaming chunk bucket (``chunk_bucket``),
+    unless the pinned plan set one.
     """
-    plan = heuristic_plan(n_vertices, n_edges, device)
-    if opts.backend != "auto":
-        plan = plan.replace(backend=opts.backend, origin="pinned")
-    if opts.algorithm in _OOCORE_NAMES:
+    plan = _planner.resolve_plan(n_vertices, n_edges, backend=opts.backend,
+                                 plan=opts.plan, device=device)
+    if opts.algorithm in _OOCORE_NAMES and plan.chunk_bucket == 0:
         plan = plan.replace(chunk_bucket=oocore_chunk_bucket(
             n_edges, requested=opts.oocore_chunk_edges))
     return plan
@@ -117,6 +126,60 @@ def _oocore_solver(graph, opts, init_labels):
     return (*out[:4], (plan.provenance_entry(), *out[4]))
 
 
+def device_degree_skew(src, dst, n_vertices: int) -> float:
+    """Max-degree / mean-degree ratio, computed where the edges lie.
+
+    The degrees are two ``torch.bincount`` calls on the edges' device and
+    their maximum is the one value read to the host; the mean degree is
+    ``2m / n`` in float64, which is exactly numpy's mean of the integer
+    degrees (their sum, 2m, is exact in float64), so the result equals
+    ``graphs.stats.degree_skew`` bit for bit without copying the edges to
+    the host.  0.0 for an edgeless graph or no vertices, as there.
+    """
+    m = int(src.shape[0])
+    if n_vertices <= 0 or m == 0:
+        return 0.0
+    deg = (torch.bincount(src, minlength=n_vertices)
+           + torch.bincount(dst, minlength=n_vertices))
+    mean = 2.0 * m / n_vertices
+    return float(int(deg.max())) / mean
+
+
+def auto_choice(n_vertices: int, n_edges: int, opts, degree_skew):
+    """The cost model's choice for a graph, and the options the chosen
+    solver runs under: ``(StrategyChoice, delegate options)``.
+    ``degree_skew=None`` is the size-only model ``solve_batch`` takes, as
+    the reference's tracer does."""
+    choice = _planner.resolve_strategy(
+        n_vertices, n_edges, degree_skew=degree_skew,
+        pinned_strategy=opts.sampling_strategy,
+        pinned_variant=opts.variant)
+    d_opts = opts.replace(
+        algorithm=choice.solver,
+        variant=choice.variant,
+        sampling_strategy=choice.sampling_strategy,
+        # explicit schedule knobs on the options win over the model's
+        sampling=opts.sampling or choice.sampling,
+        compact_every=opts.compact_every or choice.compact_every,
+    )
+    return choice, d_opts
+
+
+def _auto_solver(graph, opts, init_labels):
+    """Resolve (solver family, sampling strategy) with the cost model —
+    pinned options > fitted artifact > heuristic table — and delegate;
+    the choice and the delegate's provenance are returned."""
+    skew = device_degree_skew(graph.src, graph.dst, graph.n_vertices)
+    choice, d_opts = auto_choice(graph.n_vertices, graph.n_edges, opts,
+                                 skew)
+    out = tuple(get_solver(choice.solver).fn(graph, d_opts, init_labels))
+    provenance = [choice.provenance_entry()]
+    if len(out) > 4 and out[4]:
+        provenance.extend(out[4])
+    base = out[:4] if len(out) >= 4 else (*out[:3], None)
+    return (*base, tuple(provenance))
+
+
 CONTOUR = register_solver(SolverSpec(
     name="contour",
     fn=_contour_solver,
@@ -150,6 +213,16 @@ UNION_FIND = register_solver(SolverSpec(
     supports_batch=False,        # host-side sequential loop
     runs_on="host",
     paper_ref="§III-C (ConnectIt stand-in: Rem's union-find)",
+))
+
+AUTO = register_solver(SolverSpec(
+    name="auto",
+    fn=_auto_solver,
+    variants=_contour.VARIANTS + ("C-<h>",),
+    default_variant=None,        # the cost model picks unless pinned
+    default_max_iters=100_000,
+    supports_streaming=True,
+    paper_ref="ConnectIt strategy-matrix dispatch (DESIGN.md §16)",
 ))
 
 OOCORE = register_solver(SolverSpec(

@@ -209,8 +209,8 @@ class StreamingConnectivity:
         # engine invariant: labels between batches are a star-forest fixed
         # point (identity already is one; a warm start is only guaranteed
         # L[v]-in-component, so compress)
-        jump = cv.loop_ops(self._plan(0, opts).backend).pointer_jump
-        self._labels = fr.compress_full(L0, jump) if init is not None else L0
+        loop = cv.loop_ops(self._plan(0, opts).backend)
+        self._labels = fr.compress_full(L0, loop) if init is not None else L0
 
         self._store_edges = bool(store_edges)
         cap = next_pow2(max(int(min_capacity), 1)) if store_edges else 0

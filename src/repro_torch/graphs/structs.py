@@ -52,8 +52,9 @@ def _check_edge_tensors(src: torch.Tensor, dst: torch.Tensor,
     # kernels on the main path rely on it and do not wait to check
     for name, t in (("src", src), ("dst", dst)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 \
-                or t.dim() != 1:
-            raise TypeError(f"{name} must be a 1-D int32 tensor")
+                or t.dim() not in (1, 2):
+            raise TypeError(f"{name} must be a 1-D int32 tensor (or "
+                            "[B, m] for a batched graph)")
     if src.shape != dst.shape or src.device != dst.device:
         raise ValueError(f"src/dst mismatch: {tuple(src.shape)} on "
                          f"{src.device} vs {tuple(dst.shape)} on {dst.device}")
@@ -73,7 +74,8 @@ class Graph:
     """Undirected graph as an edge list.
 
     Attributes:
-      src: int32[m] edge sources.
+      src: int32[m] edge sources (``[B, m]`` for a batched graph:
+        ``connectivity.batch.stack_graphs``).
       dst: int32[m] edge destinations, on the same device as ``src``.
       n_vertices: static python int, number of vertices (ids are 0..n-1).
 

@@ -44,6 +44,15 @@ the loop's early-convergence point a sweep is an exact no-op, and the
 kernel then skips its pass over the edges.  The kernel reads the word on
 the card, so the host does not wait for it.
 
+The fleet's entry points, :func:`fused_relax_batched` and
+:func:`scatter_min_batched` (``solve_batch``'s dense loop), sweep ``B``
+graphs in one launch: lane ``b``'s vertex ``v`` is ``b * n + v`` in one
+``[B * n]`` label array, the edges are the stacked ``[B, m]`` arrays with
+each graph's own ids, and a lane whose ``done`` word in the fleet's
+``[B, 4]`` loop state (``converged.fleet_state``) is set takes no part.
+Their plain versions do the same per-lane arithmetic and read nothing on
+the host.
+
 Ids outside ``[0, n)`` (``n = len(L)``) raise ``IndexError`` on both
 devices: the plain versions check before they gather, and the kernels
 check every id before they follow it, skip it, and set an error word
@@ -94,6 +103,13 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.contour_scatter_min.argtypes = [_P, _P, _P, _P, _P, i64, _P, _P,
                                         i64, _P, _P]
     lib.contour_scatter_min.restype = i32
+    if hasattr(lib, "contour_fused_relax_batched"):
+        lib.contour_fused_relax_batched.argtypes = [_P, _P, _P, _P, i64,
+                                                    i64, i64, _P, _P]
+        lib.contour_fused_relax_batched.restype = i32
+        lib.contour_scatter_min_batched.argtypes = [_P, _P, _P, _P, i64,
+                                                    i64, i64, _P, _P]
+        lib.contour_scatter_min_batched.restype = i32
     return lib
 
 
@@ -426,3 +442,162 @@ def scatter_min_combined_replay(L: torch.Tensor, targets: torch.Tensor,
     live = keep & (values < L[torch.where(keep, targets, 0)])
     return _replay(L, torch.where(live, targets, -1)[:, None], values,
                    items_per_lane)
+
+
+# ---------------------------------------------------------------------------
+# the fleet's sweeps (solve_batch): K1 and K2 over B lanes in one launch
+# ---------------------------------------------------------------------------
+
+# an update no label can take: how the plain versions drop a frozen lane's
+# updates without reading which lanes are frozen on the host
+_NO_UPDATE = torch.iinfo(torch.int32).max
+
+
+def lane_offsets(lanes_b: int, n: int, device) -> torch.Tensor:
+    """``[B, 1]`` int32 ids of each lane's vertex 0 (``b * n``)."""
+    return (torch.arange(lanes_b, dtype=torch.int32, device=device)
+            * n)[:, None]
+
+
+def _frozen(lanes: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Each lane's done word as a bool ``[B]`` (None: no lane frozen)."""
+    return None if lanes is None else lanes[:, 0] != 0
+
+
+def check_fleet(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                n: int, lanes: Optional[torch.Tensor]) -> int:
+    """Check a fleet's labels, edges and lane words; returns ``B``."""
+    check_int32("L", L, L.device)
+    for name, t in (("src", src), ("dst", dst)):
+        if t.dtype != torch.int32 or t.dim() != 2:
+            raise TypeError(f"{name} must be a [B, m] int32 tensor, got "
+                            f"{t.dtype} of shape {tuple(t.shape)}")
+        if t.device != L.device:
+            raise ValueError(f"{name} is on {t.device}, L on {L.device}")
+    if src.shape != dst.shape:
+        raise ValueError(f"src/dst shape mismatch: {tuple(src.shape)} vs "
+                         f"{tuple(dst.shape)}")
+    lanes_b = int(src.shape[0])
+    check_lane_words(L, n, lanes_b, lanes)
+    return lanes_b
+
+
+def check_lane_words(L: torch.Tensor, n: int, lanes_b: int,
+                     lanes: Optional[torch.Tensor]) -> None:
+    """``L`` holds ``B * n`` labels (fewer than 2**31) and ``lanes`` is
+    None or the fleet's ``[B, 4]`` int32 words on ``L``'s device."""
+    if lanes_b * n != int(L.shape[0]):
+        raise ValueError(f"L has {int(L.shape[0])} labels, not B * n = "
+                         f"{lanes_b} * {n}")
+    if lanes_b * n >= 1 << 31:
+        raise ValueError(f"B * n = {lanes_b * n} labels exceed the int32 "
+                         "id space")
+    if lanes is not None:
+        if lanes.dtype != torch.int32 or tuple(lanes.shape) != (lanes_b, 4) \
+                or not lanes.is_contiguous():
+            raise TypeError(f"lanes must be [{lanes_b}, 4] contiguous "
+                            f"int32, got {lanes.dtype} of shape "
+                            f"{tuple(lanes.shape)}")
+        if lanes.device != L.device:
+            raise ValueError(f"lanes is on {lanes.device}, L on {L.device}")
+
+
+def launch_counted(fn, *args, wrapper, device: torch.device) -> None:
+    """Launch ``fn`` on the current stream and count it on ``wrapper``
+    (the launchers that take no range flag: the fleet's sweeps and the
+    loop's kernels, ``converged.py``)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def fused_relax_batched_plain(L: torch.Tensor, src: torch.Tensor,
+                              dst: torch.Tensor, n: int,
+                              lanes: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Plain version of :func:`fused_relax_batched`: each live lane's
+    order-2 sweep, ``minmap.mm_relax(L_b, src[b], dst[b], 2)``."""
+    lanes_b = int(src.shape[0])
+    Lv = L.view(lanes_b, n)
+    ls = Lv.gather(1, src.long())
+    ld = Lv.gather(1, dst.long())
+    z = torch.minimum(L[ls], L[ld])
+    frozen = _frozen(lanes)
+    if frozen is not None:
+        z = torch.where(frozen[:, None], _NO_UPDATE, z)
+    off = lane_offsets(lanes_b, n, L.device)
+    idx = torch.cat([src + off, dst + off, ls, ld]).reshape(-1).long()
+    return L.scatter_reduce(0, idx, z.repeat(4, 1).reshape(-1), "amin",
+                            include_self=True)
+
+
+def fused_relax_batched(L: torch.Tensor, src: torch.Tensor,
+                        dst: torch.Tensor, n: int,
+                        lanes: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """One synchronous order-2 sweep of every lane of a fleet not frozen
+    in ``lanes``; returns new labels.  ``L`` is ``[B * n]`` with lane
+    ``b``'s vertex ``v`` at ``b * n + v``; ``src``/``dst`` are ``[B, m]``
+    with each graph's own ids.  One launch for the whole fleet."""
+    lanes_b = check_fleet(L, src, dst, n, lanes)
+    if not on_cuda(L):
+        return fused_relax_batched_plain(L, src, dst, n, lanes)
+    L, src, dst = L.contiguous(), src.contiguous(), dst.contiguous()
+    out = L.clone()
+    m = int(src.shape[1])
+    if m > 0 and lanes_b > 0:
+        launch_counted(load_library().contour_fused_relax_batched,
+                       L.data_ptr(), out.data_ptr(), src.data_ptr(),
+                       dst.data_ptr(), m, lanes_b, n, _ptr(lanes),
+                       wrapper=fused_relax_batched, device=L.device)
+    return out
+
+
+fused_relax_batched.launches = 0
+
+
+def scatter_min_batched_plain(L: torch.Tensor, targets: torch.Tensor,
+                              values: torch.Tensor, n: int,
+                              lanes: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Plain version of :func:`scatter_min_batched`."""
+    idx = targets.long()
+    frozen = _frozen(lanes)
+    if frozen is not None:
+        values = torch.where(frozen[idx // n], _NO_UPDATE, values)
+    return L.scatter_reduce(0, idx, values, "amin", include_self=True)
+
+
+def scatter_min_batched(L: torch.Tensor, targets: torch.Tensor,
+                        values: torch.Tensor, n: int,
+                        lanes: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """``L.at[targets].min(values)`` over a fleet's update stream, whose
+    targets are ids of the ``[B * n]`` label array (the lane of an update
+    is its target // n); a lane frozen in ``lanes`` takes no update."""
+    check_updates(L, targets, values, None)
+    lanes_b = int(L.shape[0]) // max(n, 1)
+    check_lane_words(L, n, lanes_b, lanes)
+    if not on_cuda(L):
+        return scatter_min_batched_plain(L, targets, values, n, lanes)
+    L, targets, values = L.contiguous(), targets.contiguous(), \
+        values.contiguous()
+    out = L.clone()
+    k = int(targets.shape[0])
+    if k > 0:
+        launch_counted(load_library().contour_scatter_min_batched,
+                       L.data_ptr(), out.data_ptr(), targets.data_ptr(),
+                       values.data_ptr(), k, int(L.shape[0]), n,
+                       _ptr(lanes), wrapper=scatter_min_batched,
+                       device=L.device)
+    return out
+
+
+scatter_min_batched.launches = 0

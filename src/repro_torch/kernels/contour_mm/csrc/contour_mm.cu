@@ -302,6 +302,61 @@ scatter_min_kernel(const int* __restrict__ L_in, int* __restrict__ L_out,
   count(counter, c);
 }
 
+// The fleet's sweeps (solve_batch): B graphs of n vertices and m edges
+// each, in one launch.  Lane b's vertex v is b * n + v in one [B * n]
+// label array, whose labels are such ids too; the edges are the stacked
+// [B, m] arrays as they are, with the graphs' own ids, and an item's lane
+// comes from its index (an edge) or its target (an update).  Lanes never
+// share an edge, so the sweep over the union is each lane's own sweep.
+// lanes is the fleet's per-lane loop state, [B, 4] int32 (converged.cu):
+// a lane whose done word is set takes no part, so it stays frozen while
+// the others sweep on.  Simple kernels: one item a thread, an edge's
+// targets deduplicated and an update that cannot lower its input label
+// dropped, then atomicMin; an id outside the label array is skipped.
+
+__device__ __forceinline__ bool lane_done(const int* lanes, int64_t lane) {
+  return lanes != nullptr && __ldg(lanes + 4 * lane) != 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_relax_batched_kernel(const int* __restrict__ L_in,
+                           int* __restrict__ L_out,
+                           const int* __restrict__ src,
+                           const int* __restrict__ dst, int64_t m,
+                           int64_t total, int64_t n,
+                           const int* __restrict__ lanes) {
+  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const int64_t lane = e / m;
+  if (lane_done(lanes, lane)) return;
+  const int64_t size = total / m * n;  // B * n labels
+  const int ws = __ldcs(src + e), wd = __ldcs(dst + e);
+  if (outside(ws, n) || outside(wd, n)) return;
+  const int s = (int)(lane * n + ws), d = (int)(lane * n + wd);
+  const int ls = __ldg(L_in + s), ld = __ldg(L_in + d);
+  if (outside(ls, size) || outside(ld, size)) return;
+  const int l2s = __ldg(L_in + ls), l2d = __ldg(L_in + ld);
+  const int z = min(l2s, l2d);
+  if (z < ls) atomicMin(L_out + s, z);
+  if (z < ld && d != s) atomicMin(L_out + d, z);
+  if (z < l2s && ls != s && ls != d) atomicMin(L_out + ls, z);
+  if (z < l2d && ld != s && ld != d && ld != ls) atomicMin(L_out + ld, z);
+}
+
+__global__ void __launch_bounds__(kThreads)
+scatter_min_batched_kernel(const int* __restrict__ L_in,
+                           int* __restrict__ L_out,
+                           const int* __restrict__ targets,
+                           const int* __restrict__ values, int64_t k,
+                           int64_t size, int64_t n,
+                           const int* __restrict__ lanes) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= k) return;
+  const int t = __ldcs(targets + i), v = __ldcs(values + i);
+  if (outside(t, size) || lane_done(lanes, t / n)) return;
+  if (v < __ldg(L_in + t)) atomicMin(L_out + t, v);
+}
+
 // One step a warp, eight warps a block.
 int64_t blocks_for(int64_t items, int per_lane) {
   const int64_t steps = (items + 32 * per_lane - 1) / (32 * per_lane);
@@ -348,6 +403,40 @@ int contour_scatter_min(const void* L_in, void* L_out, const void* targets,
       (const int*)L_in, (int*)L_out, (const int*)targets, (const int*)values,
       (const uint8_t*)valid, k, n, (int*)err, (unsigned long long*)counter,
       (const int*)done);
+  return (int)cudaGetLastError();
+}
+
+// One order-2 sweep of the fleet: edges [0, B * m) of the stacked [B, m]
+// arrays (4-byte aligned), labels of length B * n, lanes the fleet's
+// [B, 4] loop state (may be null: every lane sweeps).
+int contour_fused_relax_batched(const void* L_in, void* L_out,
+                                const void* src, const void* dst, int64_t m,
+                                int64_t lanes_b, int64_t n,
+                                const void* lanes, void* stream) {
+  if (m <= 0 || lanes_b <= 0 || n <= 0) return (int)cudaSuccess;
+  const int64_t total = m * lanes_b;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  fused_relax_batched_kernel<<<(unsigned)blocks, kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const int*)L_in, (int*)L_out, (const int*)src, (const int*)dst, m,
+      total, n, (const int*)lanes);
+  return (int)cudaGetLastError();
+}
+
+// L_out[t] min= v over the fleet's k updates, whose targets are ids of the
+// [size] label array (size = B * n); lanes as above.
+int contour_scatter_min_batched(const void* L_in, void* L_out,
+                                const void* targets, const void* values,
+                                int64_t k, int64_t size, int64_t n,
+                                const void* lanes, void* stream) {
+  if (k <= 0 || n <= 0) return (int)cudaSuccess;
+  const int64_t blocks = (k + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  scatter_min_batched_kernel<<<(unsigned)blocks, kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const int*)L_in, (int*)L_out, (const int*)targets,
+      (const int*)values, k, size, n, (const int*)lanes);
   return (int)cudaGetLastError();
 }
 

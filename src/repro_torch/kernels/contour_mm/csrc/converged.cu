@@ -408,6 +408,115 @@ jump_kernel(const int* __restrict__ L, int* __restrict__ out, int64_t n,
   }
 }
 
+// The fleet's loop (solve_batch): B graphs in one [B * n] label array,
+// lane b's vertex v at b * n + v, and the stacked [B, m] edge arrays with
+// the graphs' own ids (an edge's lane is its index / m).  Each lane keeps
+// the four words above, lanes[4 * b + w]; the fleet keeps four more,
+// fleet[w]: done (every lane done), it (the tests that found a lane
+// live), and the test's ticket.  A test looks only at lanes not done and
+// whose bad is not set yet; a witness stores its lane's bad (and fences,
+// so the last block sees it).  The last block to take the fleet's ticket
+// does each lane's step (if (!done) { it += 1; done = !bad; }; bad = 0)
+// and sets the fleet's done once every lane is done, so the host reads
+// (done, it) of the fleet, one 8-byte copy for all lanes.  A test with
+// the fleet done returns at once.  The jump copies a lane that is done:
+// a lane freezes at the iteration its test passes, as the reference's
+// vmapped while_loop freezes it, and no later sweep or jump round of
+// another lane moves it.  Simple kernels: one item a thread of a
+// persistent grid, no early exit.
+
+__device__ __forceinline__ bool lane_live(const int* lanes, int64_t lane) {
+  // done through the read-only path (only the last block writes it, at
+  // the end); bad read as it stands, to skip a lane already witnessed
+  return !__ldg(lanes + 4 * lane + kDone) &&
+         !vload(lanes + 4 * lane + kBad);
+}
+
+__device__ __forceinline__ void lane_witness(int* lanes, int64_t lane) {
+  vstore(lanes + 4 * lane + kBad, 1);
+  __threadfence();
+}
+
+// Every thread of every block calls this at the end of a fleet test.
+__device__ void fleet_step(int* lanes, int64_t B, int* fleet) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(reinterpret_cast<unsigned*>(fleet + kTicket), 1u) ==
+           gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int all = 1, live = 0;
+  for (int64_t b = threadIdx.x; b < B; b += blockDim.x) {
+    int* w = lanes + 4 * b;
+    if (!vload(w + kDone)) {
+      live = 1;
+      const int ok = vload(w + kBad) == 0;
+      vstore(w + kIt, vload(w + kIt) + 1);
+      vstore(w + kDone, ok);
+      all &= ok;
+    }
+    vstore(w + kBad, 0);
+  }
+  all = __syncthreads_and(all);
+  live = __syncthreads_or(live);
+  if (threadIdx.x == 0) {
+    if (live) vstore(fleet + kIt, vload(fleet + kIt) + 1);
+    vstore(fleet + kDone, all);
+    vstore(fleet + kTicket, 0);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+converged_batched_kernel(const int* __restrict__ L,
+                         const int* __restrict__ src,
+                         const int* __restrict__ dst, int64_t m,
+                         int64_t B, int64_t n, int* lanes, int* fleet) {
+  if (__ldg(fleet + kDone)) return;
+  const int64_t total = m * B, size = B * n;
+  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < total;
+       e += (int64_t)gridDim.x * kThreads) {
+    const int64_t lane = e / m;
+    if (!lane_live(lanes, lane)) continue;
+    const int ws = __ldcs(src + e), wd = __ldcs(dst + e);
+    bool witness = !inside(ws, n) || !inside(wd, n);
+    if (!witness) {
+      const int lw = __ldg(L + lane * n + ws), lv = __ldg(L + lane * n + wd);
+      witness = lw != lv || !inside(lw, size) || __ldg(L + lw) != lw;
+    }
+    if (witness) lane_witness(lanes, lane);
+  }
+  fleet_step(lanes, B, fleet);
+}
+
+__global__ void __launch_bounds__(kThreads)
+unchanged_batched_kernel(const int* __restrict__ a,
+                         const int* __restrict__ b, int64_t B, int64_t n,
+                         int* lanes, int* fleet) {
+  if (__ldg(fleet + kDone)) return;
+  const int64_t total = B * n;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * kThreads) {
+    const int64_t lane = i / n;
+    if (lane_live(lanes, lane) && __ldcs(a + i) != __ldcs(b + i))
+      lane_witness(lanes, lane);
+  }
+  fleet_step(lanes, B, fleet);
+}
+
+__global__ void __launch_bounds__(kThreads)
+jump_batched_kernel(const int* __restrict__ L, int* __restrict__ out,
+                    int64_t size, int64_t n, const int* __restrict__ lanes) {
+  const int64_t v = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (v >= size) return;
+  int l = __ldg(L + v);
+  if (lanes == nullptr || !__ldg(lanes + 4 * (v / n) + kDone)) {
+    if (inside(l, size)) l = min(l, __ldg(L + l));
+  }
+  __stcs(out + v, l);
+}
+
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -492,6 +601,45 @@ int contour_pointer_jump(const void* L, void* out, int64_t n,
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   jump_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)L, (int*)out, n, (const int*)done);
+  return (int)cudaGetLastError();
+}
+
+// The fleet's early-convergence test over the stacked [B, m] edges of
+// labels of length B * n; lanes [B, 4] and fleet [4] as above.
+int contour_converged_early_batched(const void* L, const void* src,
+                                    const void* dst, int64_t m, int64_t B,
+                                    int64_t n, void* lanes, void* fleet,
+                                    void* stream) {
+  if (m < 0 || B <= 0 || n < 0) return (int)cudaErrorInvalidValue;
+  converged_batched_kernel<<<(unsigned)test_blocks(m * B, 1), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const int*)L, (const int*)src, (const int*)dst, m, B, n,
+      (int*)lanes, (int*)fleet);
+  return (int)cudaGetLastError();
+}
+
+// The fleet's no-change test over two [B * n] arrays.
+int contour_labels_unchanged_batched(const void* a, const void* b,
+                                     int64_t B, int64_t n, void* lanes,
+                                     void* fleet, void* stream) {
+  if (B <= 0 || n < 0) return (int)cudaErrorInvalidValue;
+  unchanged_batched_kernel<<<(unsigned)test_blocks(B * n, 1), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const int*)a, (const int*)b, B, n, (int*)lanes, (int*)fleet);
+  return (int)cudaGetLastError();
+}
+
+// out = one pointer-jump round of the fleet's labels (length size = B *
+// n), a copy of each lane whose done word is set (lanes may be null).
+int contour_pointer_jump_batched(const void* L, void* out, int64_t size,
+                                 int64_t n, const void* lanes,
+                                 void* stream) {
+  if (size <= 0 || n <= 0) return (int)cudaSuccess;
+  const int64_t blocks = (size + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  jump_batched_kernel<<<(unsigned)blocks, kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const int*)L, (int*)out, size, n, (const int*)lanes);
   return (int)cudaGetLastError();
 }
 

@@ -87,13 +87,14 @@ def test_family_budget_runs_match_reference(algorithm, max_iters, chunk,
 
 
 def test_registry_matches_reference():
-    """The port registers five families; the baselines and the
-    out-of-core solver with the reference's aliases, budgets, capability
+    """The port registers six families; the baselines, the out-of-core
+    solver and ``auto`` with the reference's aliases, budgets, capability
     flags and paper sections."""
-    assert repro_torch.list_solvers() == ("contour", "fastsv",
+    assert repro_torch.list_solvers() == ("auto", "contour", "fastsv",
                                           "label_propagation", "oocore",
                                           "union_find")
-    for name in ("fastsv", "label_propagation", "union_find", "oocore"):
+    for name in ("fastsv", "label_propagation", "union_find", "oocore",
+                 "auto"):
         port = dataclasses.asdict(get_solver(name))
         ref = dataclasses.asdict(ref_registry.get_solver(name))
         for key in ("fn", "variants"):

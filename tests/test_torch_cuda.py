@@ -1049,3 +1049,144 @@ def test_oocore_peak_bytes_below_the_edge_list(cuda):
     peak = oocore.device_peak_bytes(cuda) - base
     assert 0 < peak < oocore.EDGE_BYTES * chunks.n_edges
     assert not eng.round_cap_exhausted
+
+
+def test_oocore_fold_peak_within_the_estimate(cuda):
+    """delaunay_like(21) in chunks of 2**17 (n is 16 buckets, so the
+    labels dominate): the bytes the run allocates on the card stay within
+    ``peak_bytes_estimate()``, which counts three label arrays, and below
+    the edge list's 8m."""
+    from repro_torch.connectivity import OutOfCoreContraction
+    from repro_torch.connectivity import oocore
+
+    src, dst, n = gen.delaunay_like(21, device="cpu").to_numpy()
+    chunks = gen.ArrayChunks(src, dst, n, 1 << 17)
+    OutOfCoreContraction(chunks, device=cuda).run()   # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    eng = OutOfCoreContraction(chunks, device=cuda)
+    labels = eng.run()[0]
+    torch.cuda.synchronize()
+    peak = oocore.device_peak_bytes(cuda) - base
+    assert 0 < peak <= eng.peak_bytes_estimate()
+    assert peak < oocore.EDGE_BYTES * chunks.n_edges
+    assert np.array_equal(labels.cpu().numpy(),
+                          connected_components_oracle(src, dst, n))
+
+
+def _fleet(device, seed=0):
+    """Eight small graphs of four families, and identity warm starts but
+    for one lane whose padding vertices form an edge-free chain."""
+    gs = [gen.rmat(8, edge_factor=16, seed=seed + 1, device=device),
+          gen.path(200, seed=seed + 2, device=device),
+          gen.grid2d(12, 20, device=device),
+          gen.star(100, seed=seed + 3, device=device),
+          gen.rmat(7, edge_factor=4, seed=seed + 4, device=device),
+          gen.path(50, seed=seed + 5, device=device),
+          gen.grid2d(5, 5, device=device),
+          gen.star(64, seed=seed + 6, device=device)]
+    n = max(g.n_vertices for g in gs)
+    warm = [torch.arange(g.n_vertices, dtype=torch.int32, device=device)
+            for g in gs]
+    chain = torch.arange(n, dtype=torch.int32, device=device)
+    chain[100:] -= 1
+    warm[6] = chain
+    return gs, warm
+
+
+@pytest.mark.parametrize("variant", ["C-2", "C-Syn", "C-1", "C-m",
+                                     "C-11mm", "C-1m1m", "C-3"])
+def test_fleet_on_the_card_matches_cpu(cuda, variant):
+    from repro_torch import solve_batch
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    fleet, warm = _fleet(cuda)
+    cpu_fleet, cpu_warm = _fleet("cpu")
+    for ws, cpu_ws in ((None, None), (warm, cpu_warm)):
+        cv_names = ("converged_early_batched", "labels_unchanged_batched",
+                    "pointer_jump_batched")
+        for fn in (blocked.fused_relax_batched, blocked.scatter_min_batched,
+                   blocked.fused_relax, *(getattr(cv, k) for k in cv_names)):
+            fn.launches = 0
+        card = solve_batch(fleet, variant=variant, warm_start=ws)
+        plain = solve_batch(fleet, variant=variant, warm_start=ws,
+                            backend="torch")
+        assert blocked.fused_relax.launches == 0
+        test = (cv.labels_unchanged_batched if variant == "C-Syn"
+                else cv.converged_early_batched)
+        assert test.launches > 0
+        sweep = (blocked.scatter_min_batched if variant in ("C-1", "C-3")
+                 else blocked.fused_relax_batched)
+        assert sweep.launches > 0
+        if variant != "C-Syn":
+            assert cv.pointer_jump_batched.launches > 0
+        cpu = solve_batch(cpu_fleet, variant=variant, warm_start=cpu_ws)
+        for res in (card, plain):
+            for key in ("labels", "iterations", "converged", "edges_visited"):
+                assert torch.equal(getattr(res, key).cpu(),
+                                   getattr(cpu, key)), key
+
+
+@pytest.mark.parametrize("lanes_b", [1, 8, 33])
+def test_fleet_entry_points_match_plain_on_the_card(cuda, lanes_b):
+    from repro_torch.connectivity import contour
+    from repro_torch.connectivity.batch import stack_graphs
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    gs = [gen.rmat(9, edge_factor=8, seed=s, device=cuda)
+          if s % 3 else gen.grid2d(10, 30 + s, device=cuda)
+          for s in range(lanes_b)]
+    st = stack_graphs(gs)
+    n, src, dst = st.n_vertices, st.src, st.dst
+    off = blocked.lane_offsets(lanes_b, n, cuda)
+    L = (torch.arange(n, dtype=torch.int32, device=cuda)
+         .expand(lanes_b, n) + off).reshape(-1).contiguous()
+    lanes = torch.zeros((lanes_b, 4), dtype=torch.int32, device=cuda)
+    lanes[1::2, cv.DONE] = 1
+    for _ in range(4):
+        for lw in (None, lanes):
+            assert torch.equal(
+                blocked.fused_relax_batched(L, src, dst, n, lw),
+                blocked.fused_relax_batched_plain(L, src, dst, n, lw))
+            for order in (1, 3):
+                t, v = contour.mm_update_stream_batched(L, src, dst, n,
+                                                        order)
+                assert torch.equal(
+                    blocked.scatter_min_batched(L, t, v, n, lw),
+                    blocked.scatter_min_batched_plain(L, t, v, n, lw))
+            assert torch.equal(cv.pointer_jump_batched(L, n, lw),
+                               cv.pointer_jump_batched_plain(L, n, lw))
+            jumped = cv.pointer_jump_batched_plain(L, n)
+            for fn, plain, args in (
+                    (cv.converged_early_batched,
+                     cv.converged_early_batched_plain, (L, src, dst, n)),
+                    (cv.labels_unchanged_batched,
+                     cv.labels_unchanged_batched_plain, (jumped, L, n)),
+                    (cv.labels_unchanged_batched,
+                     cv.labels_unchanged_batched_plain, (L, L, n))):
+                a = cv.fleet_state(lanes_b, cuda)
+                b = cv.fleet_state(lanes_b, cuda)
+                if lw is not None:
+                    a.lanes.copy_(lw)
+                    b.lanes.copy_(lw)
+                fn(*args, a)
+                plain(*args, b)
+                assert torch.equal(a.lanes, b.lanes)
+                assert torch.equal(a.fleet[:2], b.fleet[:2])
+                assert a.fleet[cv.TICKET].item() == 0
+        L = cv.pointer_jump_batched_plain(
+            blocked.fused_relax_batched_plain(L, src, dst, n), n)
+
+
+def test_fleet_past_the_id_space_is_refused_before_a_launch(cuda):
+    from repro_torch import Graph, solve_batch
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    src = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    blocked.fused_relax_batched.launches = 0
+    cv.converged_early_batched.launches = 0
+    with pytest.raises(ValueError, match="int32"):
+        solve_batch(Graph(src=src, dst=src, n_vertices=1 << 30))
+    assert blocked.fused_relax_batched.launches == 0
+    assert cv.converged_early_batched.launches == 0

@@ -239,6 +239,85 @@ def test_compress_full_matches_reference():
     _eq(want, fr.compress_full(fr.compress_full(_t(L))))
 
 
+@pytest.mark.parametrize("owned", [False, True])
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_compress_full_rounds_and_buffers(owned, backend):
+    """The jump-and-no-change rounds make the labels and the number of
+    flag reads of ``while not is_star_forest(L): L = jump(L)``; the
+    caller's labels are left alone unless ``owned``, and with ``owned``
+    the rounds allocate one label array at most."""
+    from repro_torch.connectivity import minmap
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    rng = np.random.default_rng(3)
+    n = 2000
+    L = np.minimum(np.arange(n), (rng.random(n) * np.arange(n)).astype(int))
+    L0 = _t(L.astype(np.int32))
+    want, star_reads = L0.clone(), 1
+    while not bool(minmap.is_star_forest(want)):
+        want = minmap.pointer_jump(want)
+        star_reads += 1
+    loop = cv.loop_ops(backend)
+    calls = {"jump": 0, "test": 0, "new": 0}
+
+    def jump(x, done=None, out=None):
+        calls["jump"] += 1
+        calls["new"] += out is None
+        return loop.pointer_jump(x, done, out) if out is not None \
+            else loop.pointer_jump(x, done)
+
+    def test(a, b, **kw):
+        calls["test"] += 1
+        return loop.labels_unchanged(a, b, **kw)
+
+    counted = cv.LoopOps(loop.converged_early, test, jump)
+    given = L0.clone()
+    got = fr.compress_full(given, counted, owned=owned)
+    _eq(want, got)
+    assert calls["test"] == star_reads == calls["jump"]
+    if not owned:
+        assert torch.equal(given, L0)
+        assert calls["new"] == min(calls["jump"], 2)
+    else:
+        assert calls["new"] == 1
+
+
+def test_frontier_loop_leaves_the_callers_labels():
+    """The loop overwrites only labels it made itself: the caller's stay
+    as they were, with C-m's eleven jump rounds an iteration too."""
+    s, d, n = ref_gen.rmat(9, seed=4).to_numpy()
+    src, dst = torch.tensor(s), torch.tensor(d)
+    for variant in ("C-2", "C-m", "C-11mm"):
+        L0 = torch.arange(n, dtype=torch.int32)
+        L0[7:] -= 1   # a chain: not a star forest
+        before = L0.clone()
+        out = fr.adaptive_fixpoint(
+            src, dst, L0, contour._make_step(variant, 2, 1, "cuda"),
+            n_vertices=n, sampling=0, compact_every=1, max_iters=100)
+        assert torch.equal(L0, before)
+        assert out[0] is not L0
+        ref = repro_torch.solve(interop.graph_from_arrays(s, d, n,
+                                                          device="cpu"),
+                                variant=variant, warm_start=before,
+                                compact_every=1)
+        _eq(np.asarray(ref.labels), out[0])
+
+
+def test_pointer_jump_into_a_buffer():
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    L = _t(np.array([0, 0, 1, 2, 3, 4], np.int32))
+    for jump in (cv.pointer_jump, cv.pointer_jump_plain):
+        out = torch.full_like(L, -1)
+        got = jump(L, None, out=out)
+        assert got is out
+        _eq(np.array([0, 0, 0, 1, 2, 3]), got)
+        with pytest.raises(ValueError, match="not be L"):
+            jump(L, None, out=L)
+        with pytest.raises(ValueError, match="shape"):
+            jump(L, None, out=torch.empty(3, dtype=torch.int32))
+
+
 def test_edges_visited_accumulates_in_float32():
     """Each sweep adds its bound to a float32 counter, as the reference's
     ``visited + limit.astype(float32)``: past 2**24 that differs from an

@@ -44,7 +44,10 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                    "connectivity.oocore", "connectivity.resilience",
                    "checkpoint.manager", "runtime.recovery",
                    "runtime.straggler", "serving.engine", "serving.client",
-                   "serving.simulate", "data.dedup"):
+                   "serving.simulate", "data.dedup", "connectivity.batch",
+                   "connectivity.planner.cache",
+                   "connectivity.planner.autotune",
+                   "connectivity.planner.costmodel"):
         assert f"repro_torch.{module}" in modules
     code = (
         "import importlib, sys\n"

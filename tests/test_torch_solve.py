@@ -198,7 +198,9 @@ BAD_OPTIONS = [
     ({"sampling": -1}, ValueError, "sampling"),
     ({"compact_every": -2}, ValueError, "compact_every"),
     ({"variant": "C-7x"}, ValueError, "unknown variant"),
-    ({"algorithm": "auto"}, ValueError, "unknown algorithm"),
+    # the reference's family the port still leaves out ("auto" is
+    # registered since)
+    ({"algorithm": "distributed"}, ValueError, "unknown algorithm"),
     ({"algorithm": "oocore", "variant": "C-Syn"}, ValueError, "C-Syn"),
     ({"sampling": 2, "variant": "C-Syn"}, ValueError, "C-Syn"),
     ({"compact_every": 4, "variant": "C-Syn"}, ValueError, "C-Syn"),
@@ -218,8 +220,10 @@ def test_option_errors(overrides, err, match):
 
 
 # the reference's fields the port leaves out: setting one is an error
+# ("plan" is ported since, and checked below as the pinned plan it is)
 OMITTED = ["mesh", "edge_axes", "local_rounds", "plan", "kernel_fallback",
            "vmem_limit_bytes"]
+PINNED_PLAN = "plan"
 # the reference's out-of-core fields, ported since: the reference's
 # defaults, and a value it refuses fails as loudly
 PORTED = {"oocore_chunk_edges": 512, "oocore_round_cap": 0,
@@ -238,6 +242,13 @@ def test_omitted_fields_fail_loudly(field):
         with pytest.raises(ValueError, match=field):
             repro_torch.solve(g, **{field: PORTED[field]})
         return
+    if field == PINNED_PLAN:
+        # the reference's default, and anything but a plan fails loudly
+        assert SolveOptions().plan is None and repro.SolveOptions().plan \
+            is None
+        with pytest.raises(TypeError, match="ExecutionPlan"):
+            repro_torch.solve(g, plan="pallas")
+        return
     with pytest.raises(TypeError):
         SolveOptions(**{field: None})
     with pytest.raises(TypeError):
@@ -252,7 +263,7 @@ def test_other_solve_errors():
         repro_torch.solve(g, warm_start=np.full(g.n_vertices, -1))
     with pytest.raises(ValueError, match="1-D"):
         repro_torch.solve(g, warm_start=np.zeros((2, 2), np.int32))
-    assert repro_torch.list_solvers() == ("contour", "fastsv",
+    assert repro_torch.list_solvers() == ("auto", "contour", "fastsv",
                                           "label_propagation", "oocore",
                                           "union_find")
 
