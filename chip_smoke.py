@@ -66,6 +66,14 @@ against scipy's connected components:
   of round 0 and one at a round boundary, and ``stream_with_recovery``
   over rmat(20,16)'s edges with two faults, each against its clean run
   bit for bit;
+* fleets of small graphs through ``solve_batch`` (1024 x rmat(12,16),
+  256 x delaunay_like(14), a ragged fleet of 512): every lane against
+  scipy, its solo solve and the ``torch`` backend's fleet, walls, host
+  syncs and the launches of each route; K1 fleet and K6 fleet ran their
+  lane route (``fleet.fleet_route``: each lane's labels in shared
+  memory) and are held on both routes against their plain versions and
+  timed, with the fleet's other entry points; then
+  ``algorithm="auto"`` and the autotuner;
 * the float kernels' entry points, ``fused_rmsnorm(x, w)`` and
   ``flash_attention(q, k, v)``, at mistral-nemo-12b's widths (d_model
   5120; 32 heads, 8 KV heads, head dim 128) over 8 x 4096 and 2 x 4096
@@ -127,6 +135,7 @@ from repro_torch.connectivity.solvers import device_degree_skew  # noqa: E402
 from repro_torch.graphs import generators as gen  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.contour_mm import blocked, kernel, ops  # noqa: E402
+from repro_torch.kernels.contour_mm import fleet  # noqa: E402
 from repro_torch.kernels.contour_mm import converged as cv  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, mha_ref)
@@ -291,12 +300,14 @@ REPLACES = {
 SOURCE = "src/repro_torch/kernels/contour_mm/csrc/contour_mm.cu"
 MM2_SOURCE = "src/repro_torch/kernels/contour_mm/csrc/mm2.cu"
 CONVERGED_SOURCE = "src/repro_torch/kernels/contour_mm/csrc/converged.cu"
+FLEET_SOURCE = "src/repro_torch/kernels/contour_mm/csrc/fleet.cu"
 RMSNORM_SOURCE = "src/repro_torch/kernels/fused_rmsnorm/csrc/rmsnorm.cu"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
 # (library, its module) for every kernel library of the port
 LIBRARIES = ((blocked.LIBRARY, blocked), (kernel.LIBRARY, kernel),
-             (cv.LIBRARY, cv), (rms_kernel.LIBRARY, rms_kernel),
+             (cv.LIBRARY, cv), (fleet.LIBRARY, fleet),
+             (rms_kernel.LIBRARY, rms_kernel),
              (flash_kernel.LIBRARY, flash_kernel))
 # every kernel wrapper of the port, by name; each counts its launches
 WRAPPERS = {"fused_relax": blocked.fused_relax,
@@ -312,6 +323,10 @@ WRAPPERS = {"fused_relax": blocked.fused_relax,
             "labels_unchanged_batched": cv.labels_unchanged_batched,
             "pointer_jump_batched": cv.pointer_jump_batched}
 KERNEL_NAMES = tuple(WRAPPERS)
+# the fleet's entry points with two routes (fleet.fleet_route), each
+# counted on its own
+ROUTED = ("fused_relax_batched", "converged_early_batched")
+ROUTES = ("lane", "global")
 
 
 def emit(obj) -> None:
@@ -428,6 +443,13 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    for name in ROUTED:
+        WRAPPERS[name].routes.update(dict.fromkeys(ROUTES, 0))
+
+
+def route_counts() -> dict:
+    """The launches of each route of the fleet's routed entry points."""
+    return {name: dict(WRAPPERS[name].routes) for name in ROUTED}
 
 
 def host_syncs(fn) -> dict:
@@ -2229,10 +2251,15 @@ def drive_fleet(kind: str) -> tuple:
     sync()
     cold_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
+    routes = route_counts()
     for k in ("fused_relax_batched", "converged_early_batched",
               "pointer_jump_batched"):
         if launches[k] <= 0:
             raise AssertionError(f"{name}: did not launch {k}")
+    for k in ROUTED:
+        if routes[k]["lane"] <= 0 or routes[k]["global"]:
+            raise AssertionError(f"{name}: {k} did not take the lane route "
+                                 f"alone: {routes[k]}")
     single = {k: v for k, v in launches.items()
               if v and not k.endswith("_batched")}
     if single:
@@ -2294,7 +2321,7 @@ def drive_fleet(kind: str) -> tuple:
            "iterations_max": int(its.max()),
            "iterations_mean": float(its.float().mean()),
            "host_syncs": syncs["total"], "host_syncs_sites": syncs["sites"],
-           "profiled": idle, "launches": launches,
+           "profiled": idle, "launches": launches, "routes": routes,
            "provenance": list(res.provenance or ()),
            "setup_s": setup_s}
     emit(row)
@@ -2337,17 +2364,35 @@ def fleet_check_scale() -> dict:
                               "card vs cpu")
             checks += 1
     out = {"phase": "batch_path", "check": "card_vs_cpu", "B": len(card),
-           "cases": checks, "launches": launch_counts()}
+           "cases": checks, "launches": launch_counts(),
+           "routes": route_counts()}
     emit(out)
     return out
 
 
+def witness_edges(L, src, dst, n: int) -> tuple:
+    """The edges a test of the fleet must read in this state: each lane's
+    up to its first witness (all of them where it has none), and the
+    labels those edges gather (at most three an edge, at most n a
+    lane)."""
+    lanes_b, m = (int(x) for x in src.shape)
+    Lv = L.view(lanes_b, n)
+    lw, lv = Lv.gather(1, src.long()), Lv.gather(1, dst.long())
+    bad = (lw != lv) | (lw != L[lw.long()]) | (lv != L[lv.long()])
+    edges = torch.where(bad.any(1), bad.int().argmax(1) + 1, m)
+    return int(edges.sum()), int(torch.clamp(3 * edges, max=n).sum())
+
+
 def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
     """The fleet's entry points against their plain versions on the rmat
-    fleet (identity labels, one C-2 iteration, the fixed point; no lane
-    frozen, and every other lane frozen), and their entries of the
-    kernels line: times at the first sweep (K1, K2's order-1 stream), the
-    fixed point (K6's full passes) and K7 after an L2 flush."""
+    fleet (identity labels, one C-2 iteration, the fixed point, and a
+    lane with a label outside it; no lane frozen, and every other lane
+    frozen), K1 and K6 on each route (the lane route at
+    :func:`fleet.fleet_route`'s c, at c = 1 and at c = 4, the global
+    route), and their entries of the kernels line: times at the first
+    sweep (K1 on each route, K2's order-1 stream), the fixed point and the
+    live fleet after one iteration (K6 on each route) and K7 after an L2
+    flush."""
     lanes_b, m = (int(x) for x in batched.src.shape)
     n = batched.n_vertices
     src, dst = batched.src, batched.dst
@@ -2357,17 +2402,34 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
     L1 = cv.pointer_jump_batched_plain(
         blocked.fused_relax_batched_plain(L0, src, dst, n), n)
     Lf = (fixed + off).reshape(-1).contiguous()
+    # lane 0's vertices 1 and 2 point into lane 1
+    Lx = L1.clone()
+    Lx[1], Lx[2] = n, n + 1
     half = torch.zeros((lanes_b, 4), dtype=torch.int32, device=DEVICE)
     half[1::2, cv.DONE] = 1
+    route = {kind: fleet.fleet_route(n, lanes_b, m, kind)
+             for kind in ("relax", "converged")}
+    if any(r.route != "lane" for r in route.values()):
+        raise AssertionError(f"the rmat fleet is not on the lane route: "
+                             f"{route}")
+
+    def variants(kind):
+        """The routes held to the plain version."""
+        return (route[kind], fleet.FleetRoute("lane", 1),
+                fleet.FleetRoute("lane", 4), fleet.GLOBAL)
+
     err = Counter()
     checks = 0
-    for L in (L0, L1, Lf):
+    for L in (L0, L1, Lf, Lx):
         for lanes in (None, half):
+            want = blocked.fused_relax_batched_plain(L, src, dst, n, lanes)
             err["fused_relax_batched"] = max(
                 err["fused_relax_batched"], max_abs_err(
                     blocked.fused_relax_batched(L, src, dst, n, lanes),
-                    blocked.fused_relax_batched_plain(L, src, dst, n,
-                                                      lanes)))
+                    want), *(max_abs_err(blocked.fused_relax_batched_on(
+                        r, L, src, dst, n, lanes), want)
+                        for r in variants("relax")))
+            del want
             t, v = contour.mm_update_stream_batched(L, src, dst, n, 1)
             err["scatter_min_batched"] = max(
                 err["scatter_min_batched"], max_abs_err(
@@ -2379,26 +2441,33 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                     cv.pointer_jump_batched(L, n, lanes),
                     cv.pointer_jump_batched_plain(L, n, lanes)))
             jumped = cv.pointer_jump_batched_plain(L, n)
-            for key, fn, plain, args in (
-                    ("converged_early_batched", cv.converged_early_batched,
+            early = [cv.converged_early_batched] + [
+                lambda *a, r=r: cv.converged_early_batched_on(r, *a)
+                for r in variants("converged")]
+            for key, fns, plain, args in (
+                    ("converged_early_batched", early,
                      cv.converged_early_batched_plain, (L, src, dst, n)),
-                    ("labels_unchanged_batched", cv.labels_unchanged_batched,
+                    ("labels_unchanged_batched",
+                     [cv.labels_unchanged_batched],
                      cv.labels_unchanged_batched_plain, (jumped, L, n))):
-                a = cv.fleet_state(lanes_b, DEVICE)
                 b = cv.fleet_state(lanes_b, DEVICE)
                 if lanes is not None:
-                    a.lanes.copy_(lanes)
                     b.lanes.copy_(lanes)
-                fn(*args, a)
                 plain(*args, b)
-                err[key] = max(err[key], max_abs_err(a.lanes, b.lanes),
-                               max_abs_err(a.fleet[:2], b.fleet[:2]))
+                for fn in fns:
+                    a = cv.fleet_state(lanes_b, DEVICE)
+                    if lanes is not None:
+                        a.lanes.copy_(lanes)
+                    fn(*args, a)
+                    err[key] = max(err[key], max_abs_err(a.lanes, b.lanes),
+                                   max_abs_err(a.fleet, b.fleet))
             del jumped
             checks += 1
     sync()
     if any(err.values()):
         raise AssertionError(f"the fleet's kernels differ from their plain "
                              f"versions: {dict(err)}")
+    del Lx
     t1, v1 = contour.mm_update_stream_batched(L0, src, dst, n, 1)
     t1_long = t1.long()
     k = int(t1.shape[0])
@@ -2408,13 +2477,34 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
         state.lanes.zero_()
         state.fleet.zero_()
 
+    def relax_ms(r):
+        return time_ms(lambda: blocked.fused_relax_batched_on(
+            r, L0, src, dst, n))
+
+    def early_ms(L, r):
+        return time_each_ms(lambda: cv.converged_early_batched_on(
+            r, L, src, dst, n, state), setup=fresh)
+
+    lane_relax, lane_early = route["relax"], route["converged"]
+    relax_routes = {
+        "lane": {"source": FLEET_SOURCE,
+                 "blocks_per_lane": lane_relax.blocks_per_lane,
+                 "ms": relax_ms(lane_relax)},
+        "global": {"source": SOURCE, "ms": relax_ms(fleet.GLOBAL)}}
+    early_routes = {
+        "lane": {"source": FLEET_SOURCE,
+                 "blocks_per_lane": lane_early.blocks_per_lane,
+                 "ms": early_ms(Lf, lane_early),
+                 "live_ms": early_ms(L1, lane_early)},
+        "global": {"source": CONVERGED_SOURCE, "ms": early_ms(
+            Lf, fleet.GLOBAL), "live_ms": early_ms(L1, fleet.GLOBAL)}}
+    live_edges, live_labels = witness_edges(L1, src, dst, n)
     Lf_copy = Lf.clone()
     shape = {"B": lanes_b, "n": n, "m": m, "labels": lanes_b * n}
     entries = {
         "fused_relax_batched": {
-            "source": SOURCE, "state": "identity (the first sweep)",
-            "ms": time_ms(lambda: blocked.fused_relax_batched(L0, src, dst,
-                                                              n)),
+            "source": FLEET_SOURCE, "state": "identity (the first sweep)",
+            "ms": relax_routes["lane"]["ms"], "routes": relax_routes,
             "plain_ms": time_ms(lambda: blocked.fused_relax_batched_plain(
                 L0, src, dst, n)),
             "library_ms": None,
@@ -2430,9 +2520,13 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                 lambda: L0.scatter_reduce(0, t1_long, v1, "amin")),
             **bound(8 * lanes_b * n + 8 * k, k)},
         "converged_early_batched": {
-            "source": CONVERGED_SOURCE, "state": "fixed point, every lane",
-            "ms": time_each_ms(lambda: cv.converged_early_batched(
-                Lf, src, dst, n, state), setup=fresh),
+            "source": FLEET_SOURCE, "state": "fixed point, every lane",
+            "ms": early_routes["lane"]["ms"], "routes": early_routes,
+            "live": {"state": "one C-2 iteration from identity",
+                     "ms": early_routes["lane"]["live_ms"],
+                     "edges_to_first_witness": live_edges,
+                     **bound(8 * live_edges + 4 * live_labels,
+                             3 * live_edges)},
             "plain_ms": time_each_ms(lambda: cv.converged_early_batched_plain(
                 Lf, src, dst, n, state), setup=fresh),
             "library_ms": None,
@@ -2457,10 +2551,13 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
             **bound(8 * lanes_b * n, lanes_b * n)},
     }
     emit({"phase": "batch_kernels_vs_plain", "checks": checks,
-          "shape": shape,
+          "shape": shape, "routes": {k: r._asdict() for k, r in route.items()},
           "times": {k: {f: e[f] for f in ("ms", "plain_ms", "library_ms",
                                           "bound_ms")}
-                    for k, e in entries.items()}})
+                    for k, e in entries.items()},
+          "route_times": {"fused_relax_batched": relax_routes,
+                          "converged_early_batched": early_routes},
+          "live": entries["converged_early_batched"]["live"]})
     return {name: {"name": name, "route": "cuda",
                    "replaces": REPLACES[name], "max_abs_err": err[name],
                    "shape": shape, **entry}
@@ -2486,10 +2583,19 @@ def phase_batch() -> tuple:
                 "the fleet's C-11mm against the torch backend's")
     rows.append({"phase": "batch_path", "fleet": row["fleet"],
                  "variant": "C-11mm", "launches": launches,
+                 "routes": route_counts(),
                  "iterations_max": int(res.iterations.max())})
     emit(rows[-1])
     fixed = solve_batch(batched).labels
     kernels = fleet_kernels(batched, fixed)
+    # launches a solve of the fleet's path: dense C-2 on the rmat fleet,
+    # and C-11mm for K2's order-1 sweeps
+    for key, entry in kernels.items():
+        source = rows[1] if key == "scatter_min_batched" else rows[0]
+        entry["launches_per_solve"] = {
+            "path": f"{source['fleet']}, {source.get('variant', 'C-2')}",
+            "launches": source["launches"][key],
+            **({"routes": source["routes"][key]} if key in ROUTED else {})}
     del batched, fixed, res
     for kind in ("delaunay", "ragged"):
         row, batched, _ = drive_fleet(kind)
@@ -3198,6 +3304,10 @@ def main(argv=None) -> int:
     for name in KERNEL_NAMES:
         k = dict(kernels[name])
         k["launches"] = sum(r["launches"][name] for r in runs)
+        if name in ROUTED:
+            k["launches_by_route"] = {
+                route: sum(r.get("routes", {}).get(name, {}).get(route, 0)
+                           for r in runs) for route in ROUTES}
         k["max_abs_diff"] = k["max_abs_err"]
         k["kernel_ms"] = k["ms"]
         line.append(k)

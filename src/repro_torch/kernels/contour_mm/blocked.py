@@ -51,7 +51,12 @@ graphs in one launch: lane ``b``'s vertex ``v`` is ``b * n + v`` in one
 each graph's own ids, and a lane whose ``done`` word in the fleet's
 ``[B, 4]`` loop state (``converged.fleet_state``) is set takes no part.
 Their plain versions do the same per-lane arithmetic and read nothing on
-the host.
+the host.  :func:`fused_relax_batched` takes one of two routes, chosen by
+shape (``fleet.fleet_route``): the lane route (``csrc/fleet.cu``, each
+lane's labels in shared memory) or the global route (this module's
+``csrc/contour_mm.cu`` kernel), each counted in
+``fused_relax_batched.routes``; :func:`fused_relax_batched_on` runs a
+given route.
 
 Ids outside ``[0, n)`` (``n = len(L)``) raise ``IndexError`` on both
 devices: the plain versions check before they gather, and the kernels
@@ -71,6 +76,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.contour_mm import fleet
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "contour_mm.cu",)
@@ -545,22 +551,54 @@ def fused_relax_batched(L: torch.Tensor, src: torch.Tensor,
     """One synchronous order-2 sweep of every lane of a fleet not frozen
     in ``lanes``; returns new labels.  ``L`` is ``[B * n]`` with lane
     ``b``'s vertex ``v`` at ``b * n + v``; ``src``/``dst`` are ``[B, m]``
-    with each graph's own ids.  One launch for the whole fleet."""
+    with each graph's own ids.  One launch for the whole fleet, on the
+    route :func:`fleet.fleet_route` picks."""
     lanes_b = check_fleet(L, src, dst, n, lanes)
     if not on_cuda(L):
         return fused_relax_batched_plain(L, src, dst, n, lanes)
+    route = fleet.fleet_route(n, lanes_b, int(src.shape[1]), "relax",
+                              fleet.fleet_device(L.device))
+    return _relax_fleet(route, L, src, dst, n, lanes, lanes_b)
+
+
+fused_relax_batched.launches = 0
+# launches by route (fleet.FleetRoute.route)
+fused_relax_batched.routes = {"lane": 0, "global": 0}
+
+
+def fused_relax_batched_on(route: fleet.FleetRoute, L: torch.Tensor,
+                           src: torch.Tensor, dst: torch.Tensor, n: int,
+                           lanes: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """:func:`fused_relax_batched` on CUDA tensors on ``route``, counted on
+    :func:`fused_relax_batched`: the wrapper passes
+    :func:`fleet.fleet_route`'s choice, the card's tests and
+    ``chip_smoke.py`` pass each route to hold it to the plain version."""
+    lanes_b = check_fleet(L, src, dst, n, lanes)
+    if not on_cuda(L):
+        raise ValueError("the fleet's routes run on CUDA tensors")
+    return _relax_fleet(route, L, src, dst, n, lanes, lanes_b)
+
+
+def _relax_fleet(route, L, src, dst, n, lanes, lanes_b) -> torch.Tensor:
+    """The launch on ``route`` of checked CUDA tensors."""
     L, src, dst = L.contiguous(), src.contiguous(), dst.contiguous()
     out = L.clone()
     m = int(src.shape[1])
     if m > 0 and lanes_b > 0:
-        launch_counted(load_library().contour_fused_relax_batched,
-                       L.data_ptr(), out.data_ptr(), src.data_ptr(),
-                       dst.data_ptr(), m, lanes_b, n, _ptr(lanes),
-                       wrapper=fused_relax_batched, device=L.device)
+        if route.route == "lane":
+            launch_counted(fleet.load_library().contour_fleet_relax_lane,
+                           L.data_ptr(), out.data_ptr(), src.data_ptr(),
+                           dst.data_ptr(), m, lanes_b, n, _ptr(lanes),
+                           route.blocks_per_lane,
+                           wrapper=fused_relax_batched, device=L.device)
+        else:
+            launch_counted(load_library().contour_fused_relax_batched,
+                           L.data_ptr(), out.data_ptr(), src.data_ptr(),
+                           dst.data_ptr(), m, lanes_b, n, _ptr(lanes),
+                           wrapper=fused_relax_batched, device=L.device)
+        fused_relax_batched.routes[route.route] += 1
     return out
-
-
-fused_relax_batched.launches = 0
 
 
 def scatter_min_batched_plain(L: torch.Tensor, targets: torch.Tensor,

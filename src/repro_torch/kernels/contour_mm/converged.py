@@ -35,7 +35,10 @@ lane that is done, so a lane freezes at the iteration its test passes;
 the host reads the fleet's ``(done, it)`` once per :data:`CHUNK`
 iterations (:func:`device_loop` on ``fleet``), not once per lane.
 :func:`batch_ops` gives a backend's fleet functions, those of
-``blocked`` (K1, K2) included.
+``blocked`` (K1, K2) included.  :func:`converged_early_batched` takes the
+lane route (``csrc/fleet.cu``) or the global route (``csrc/converged.cu``)
+by shape, as ``blocked.fused_relax_batched`` does
+(:func:`converged_early_batched_on` runs a given route).
 
 Each wrapper runs its kernel on a CUDA tensor, or raises; its plain torch
 version (``*_plain``, and :func:`loop_step_plain` for the step) runs when
@@ -58,7 +61,7 @@ import torch
 
 from repro_torch.connectivity import minmap
 from repro_torch.kernels import _build
-from repro_torch.kernels.contour_mm import blocked
+from repro_torch.kernels.contour_mm import blocked, fleet
 from repro_torch.kernels.contour_mm.blocked import (check_done, check_int32,
                                                     check_fleet,
                                                     check_lane_words,
@@ -394,17 +397,48 @@ def converged_early_batched(L: torch.Tensor, src: torch.Tensor,
     _check_fleet_state(state, L, n, lanes_b)
     if not on_cuda(L):
         return converged_early_batched_plain(L, src, dst, n, state)
-    L, src, dst = L.contiguous(), src.contiguous(), dst.contiguous()
-    if lanes_b > 0:
-        launch_counted(load_library().contour_converged_early_batched,
-                       L.data_ptr(), src.data_ptr(), dst.data_ptr(),
-                       int(src.shape[1]), lanes_b, n,
-                       state.lanes.data_ptr(), state.fleet.data_ptr(),
-                       wrapper=converged_early_batched, device=L.device)
-    return None
+    route = fleet.fleet_route(n, lanes_b, int(src.shape[1]), "converged",
+                              fleet.fleet_device(L.device))
+    return _early_fleet(route, L, src, dst, n, state, lanes_b)
 
 
 converged_early_batched.launches = 0
+# launches by route (fleet.FleetRoute.route)
+converged_early_batched.routes = {"lane": 0, "global": 0}
+
+
+def converged_early_batched_on(route: fleet.FleetRoute, L: torch.Tensor,
+                               src: torch.Tensor, dst: torch.Tensor, n: int,
+                               state: FleetState) -> None:
+    """:func:`converged_early_batched` on CUDA tensors on ``route``,
+    counted on :func:`converged_early_batched`, as
+    :func:`blocked.fused_relax_batched_on`."""
+    lanes_b = check_fleet(L, src, dst, n, state.lanes)
+    _check_fleet_state(state, L, n, lanes_b)
+    if not on_cuda(L):
+        raise ValueError("the fleet's routes run on CUDA tensors")
+    return _early_fleet(route, L, src, dst, n, state, lanes_b)
+
+
+def _early_fleet(route, L, src, dst, n, state, lanes_b) -> None:
+    """The launch on ``route`` of checked CUDA tensors."""
+    L, src, dst = L.contiguous(), src.contiguous(), dst.contiguous()
+    if lanes_b > 0:
+        m = int(src.shape[1])
+        if route.route == "lane":
+            launch_counted(fleet.load_library().contour_fleet_converged_lane,
+                           L.data_ptr(), src.data_ptr(), dst.data_ptr(), m,
+                           lanes_b, n, state.lanes.data_ptr(),
+                           state.fleet.data_ptr(), route.blocks_per_lane,
+                           wrapper=converged_early_batched, device=L.device)
+        else:
+            launch_counted(load_library().contour_converged_early_batched,
+                           L.data_ptr(), src.data_ptr(), dst.data_ptr(), m,
+                           lanes_b, n, state.lanes.data_ptr(),
+                           state.fleet.data_ptr(),
+                           wrapper=converged_early_batched, device=L.device)
+        converged_early_batched.routes[route.route] += 1
+    return None
 
 
 def labels_unchanged_batched_plain(a: torch.Tensor, b: torch.Tensor,

@@ -313,6 +313,9 @@ scatter_min_kernel(const int* __restrict__ L_in, int* __restrict__ L_out,
 // the others sweep on.  Simple kernels: one item a thread, an edge's
 // targets deduplicated and an update that cannot lower its input label
 // dropped, then atomicMin; an id outside the label array is skipped.
+// fused_relax_batched_kernel is K1 fleet's "global" route, for lanes whose
+// labels do not fit a block's shared memory; the others take the lane
+// route of fleet.cu (kernels/contour_mm/fleet.py: fleet_route).
 
 __device__ __forceinline__ bool lane_done(const int* lanes, int64_t lane) {
   return lanes != nullptr && __ldg(lanes + 4 * lane) != 0;

@@ -423,7 +423,10 @@ jump_kernel(const int* __restrict__ L, int* __restrict__ out, int64_t n,
 // a lane freezes at the iteration its test passes, as the reference's
 // vmapped while_loop freezes it, and no later sweep or jump round of
 // another lane moves it.  Simple kernels: one item a thread of a
-// persistent grid, no early exit.
+// persistent grid, no early exit.  converged_batched_kernel is K6 fleet's
+// "global" route, for lanes whose labels do not fit a block's shared
+// memory; the others take the lane route of fleet.cu
+// (kernels/contour_mm/fleet.py: fleet_route).
 
 __device__ __forceinline__ bool lane_live(const int* lanes, int64_t lane) {
   // done through the read-only path (only the last block writes it, at

@@ -1179,6 +1179,171 @@ def test_fleet_entry_points_match_plain_on_the_card(cuda, lanes_b):
             blocked.fused_relax_batched_plain(L, src, dst, n), n)
 
 
+def _random_fleet(device, lanes_b, n, m, seed):
+    """``[B, m]`` random edges of lanes of ``n`` vertices (numpy, seeded),
+    the fleet's identity labels and its labels after one C-2 iteration,
+    and lane words with every third lane frozen."""
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    rng = np.random.default_rng(seed)
+    src = torch.tensor(rng.integers(0, n, (lanes_b, m)), dtype=torch.int32,
+                       device=device)
+    dst = torch.tensor(rng.integers(0, n, (lanes_b, m)), dtype=torch.int32,
+                       device=device)
+    dst[:, ::5] = 0  # a hub in every lane
+    off = blocked.lane_offsets(lanes_b, n, device)
+    L0 = (torch.arange(n, dtype=torch.int32, device=device)
+          .expand(lanes_b, n) + off).reshape(-1).contiguous()
+    L1 = cv.pointer_jump_batched_plain(
+        blocked.fused_relax_batched_plain(L0, src, dst, n), n)
+    lanes = torch.zeros((lanes_b, 4), dtype=torch.int32, device=device)
+    lanes[1::3, cv.DONE] = 1
+    return src, dst, [L0, L1], lanes
+
+
+def _hold_routes(device, src, dst, states, n, lanes, routes):
+    """K1 fleet and K6 fleet on each route against their plain
+    versions: labels equal (max_abs_err 0), lane and fleet words equal;
+    each launch counted on its route."""
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    lanes_b = int(src.shape[0])
+    for L in states:
+        fixed = L
+        for _ in range(30):
+            fixed = cv.pointer_jump_batched_plain(
+                blocked.fused_relax_batched_plain(fixed, src, dst, n), n)
+        for labels in (L, fixed):
+            for lw in (None, lanes):
+                want = blocked.fused_relax_batched_plain(labels, src, dst, n,
+                                                         lw)
+                plain = cv.fleet_state(lanes_b, device)
+                if lw is not None:
+                    plain.lanes.copy_(lw)
+                cv.converged_early_batched_plain(labels, src, dst, n, plain)
+                for route in routes:
+                    before = (blocked.fused_relax_batched.routes[route.route],
+                              cv.converged_early_batched.routes[route.route])
+                    got = blocked.fused_relax_batched_on(route, labels, src,
+                                                         dst, n, lw)
+                    assert torch.equal(got, want), route
+                    state = cv.fleet_state(lanes_b, device)
+                    if lw is not None:
+                        state.lanes.copy_(lw)
+                    cv.converged_early_batched_on(route, labels, src, dst,
+                                                  n, state)
+                    assert torch.equal(state.lanes, plain.lanes), route
+                    assert torch.equal(state.fleet, plain.fleet), route
+                    assert (blocked.fused_relax_batched.routes[route.route],
+                            cv.converged_early_batched.routes[route.route]) \
+                        == (before[0] + 1, before[1] + 1)
+
+
+def _outside(L, n):
+    """Lane 0's vertices 1 and 2 pointing into lane 1."""
+    out = L.clone()
+    out[1], out[2] = n, n + 3
+    return out
+
+
+@pytest.mark.parametrize("lanes_b", [1, 8, 33, 1024])
+def test_fleet_routes_match_plain_on_the_card(cuda, lanes_b):
+    from repro_torch.kernels.contour_mm import fleet
+
+    n = 64 if lanes_b == 1024 else 700
+    # m takes K1 to c > 1 at B <= 8
+    m = 200 if lanes_b == 1024 else 8 * fleet.SHAPES["relax"].tile + 13
+    src, dst, states, lanes = _random_fleet(cuda, lanes_b, n, m, lanes_b)
+    if lanes_b > 1:
+        states.append(_outside(states[1], n))
+    chosen = {kind: fleet.fleet_route(n, lanes_b, m, kind)
+              for kind in ("relax", "converged")}
+    assert all(r.route == "lane" for r in chosen.values())
+    if lanes_b <= 8:
+        assert chosen["relax"].blocks_per_lane > 1
+    routes = [chosen["relax"], chosen["converged"],
+              fleet.FleetRoute("lane", 1), fleet.FleetRoute("lane", 3),
+              fleet.GLOBAL]
+    _hold_routes(cuda, src, dst, states, n, lanes, routes)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["relax", "converged"])
+def test_fleet_route_at_the_shared_memory_cap_on_the_card(cuda, kind):
+    from repro_torch.kernels.contour_mm import converged as cv
+    from repro_torch.kernels.contour_mm import fleet
+
+    device = fleet.fleet_device(cuda)
+    cap = fleet.lane_cap(kind, device)
+    wrapper = {"relax": blocked.fused_relax_batched,
+               "converged": cv.converged_early_batched}[kind]
+    for n, route in ((cap, "lane"), (cap + 1, "global")):
+        lanes_b, m = 3, 3 * fleet.SHAPES[kind].tile + 5
+        src, dst, states, lanes = _random_fleet(cuda, lanes_b, n, m, n)
+        assert fleet.fleet_route(n, lanes_b, m, kind).route == route
+        before = dict(wrapper.routes)
+        for L in states + [_outside(states[1], n)]:
+            for lw in (None, lanes):
+                if kind == "relax":
+                    assert torch.equal(
+                        blocked.fused_relax_batched(L, src, dst, n, lw),
+                        blocked.fused_relax_batched_plain(L, src, dst, n,
+                                                          lw))
+                    continue
+                a = cv.fleet_state(lanes_b, cuda)
+                b = cv.fleet_state(lanes_b, cuda)
+                if lw is not None:
+                    a.lanes.copy_(lw)
+                    b.lanes.copy_(lw)
+                cv.converged_early_batched(L, src, dst, n, a)
+                cv.converged_early_batched_plain(L, src, dst, n, b)
+                assert torch.equal(a.lanes, b.lanes)
+                assert torch.equal(a.fleet, b.fleet)
+        other = "global" if route == "lane" else "lane"
+        assert wrapper.routes[route] == before[route] + 6
+        assert wrapper.routes[other] == before[other]
+    # K1 at its cap with its edges split over two blocks a lane (K6 fits
+    # there too)
+    if kind == "relax":
+        src, dst, states, lanes = _random_fleet(
+            cuda, 2, cap, 2 * fleet.SHAPES["relax"].tile, 1)
+        _hold_routes(cuda, src, dst, states[:1], cap, lanes,
+                     [fleet.FleetRoute("lane", 2)])
+    torch.cuda.synchronize()
+
+
+def test_a_lane_launch_past_shared_memory_raises(cuda):
+    from repro_torch.kernels.contour_mm import fleet
+
+    # past the card's block even without the route's room for the
+    # kernel's static shared memory
+    n = fleet.lane_cap("relax", fleet.fleet_device(cuda)) + \
+        fleet.STATIC_BYTES // 8 + 1
+    src, dst, states, _ = _random_fleet(cuda, 1, n, 64, 0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        blocked.fused_relax_batched_on(fleet.FleetRoute("lane"), states[0],
+                                       src, dst, n)
+
+
+def test_fleet_device_is_the_cards(cuda):
+    from repro_torch.kernels.contour_mm import fleet
+
+    import ctypes
+
+    device = fleet.fleet_device(cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert device.sms == props.multi_processor_count
+    assert 48 << 10 < device.smem_block <= device.smem_sm
+    # the kernels' shapes as the route counts them
+    out = (ctypes.c_int * 10)()
+    fleet.load_library().contour_fleet_shapes(out)
+    for i, kind in enumerate(("relax", "converged")):
+        shape = fleet.SHAPES[kind]
+        assert list(out)[5 * i:5 * i + 5] == [
+            shape.threads, shape.tile, shape.stages, shape.ring_bytes,
+            shape.min_blocks]
+
+
 def test_fleet_past_the_id_space_is_refused_before_a_launch(cuda):
     from repro_torch import Graph, solve_batch
     from repro_torch.kernels.contour_mm import converged as cv

@@ -40,7 +40,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     import repro_torch
     modules = [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")]
-    for module in ("kernels.contour_mm.blocked", "connectivity.streaming",
+    for module in ("kernels.contour_mm.blocked", "kernels.contour_mm.fleet",
+                   "connectivity.streaming",
                    "connectivity.oocore", "connectivity.resilience",
                    "checkpoint.manager", "runtime.recovery",
                    "runtime.straggler", "serving.engine", "serving.client",
