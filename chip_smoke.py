@@ -69,10 +69,11 @@ against scipy's connected components:
 * fleets of small graphs through ``solve_batch`` (1024 x rmat(12,16),
   256 x delaunay_like(14), a ragged fleet of 512): every lane against
   scipy, its solo solve and the ``torch`` backend's fleet, walls, host
-  syncs and the launches of each route; K1 fleet and K6 fleet ran their
-  lane route (``fleet.fleet_route``: each lane's labels in shared
-  memory) and are held on both routes against their plain versions and
-  timed, with the fleet's other entry points; then
+  syncs and the launches of each route; C-11mm's walls on the rmat and
+  ragged fleets beside the ``torch`` backend's; K1, K6, K2 and K7 fleet
+  ran their lane route (``fleet.fleet_route``: each lane's labels in
+  shared memory) and are held on both routes against their plain
+  versions and timed, with ``labels_unchanged_batched``; then
   ``algorithm="auto"`` and the autotuner;
 * the float kernels' entry points, ``fused_rmsnorm(x, w)`` and
   ``flash_attention(q, k, v)``, at mistral-nemo-12b's widths (d_model
@@ -155,6 +156,8 @@ DEVICE = "cuda"
 RMAT_EDGE_FACTOR = 16
 # calls per CUDA-event or host-clock timing
 REPS = 20
+# warm solves of a fleet on the torch backend (0.01-0.65 s each) per mean
+PLAIN_FLEET_REPS = 3
 # cycles the card spins before a timed call (about 0.1 ms at 1.98 GHz):
 # more than the host takes to enqueue one call
 HOLD_CYCLES = 200_000
@@ -325,7 +328,8 @@ WRAPPERS = {"fused_relax": blocked.fused_relax,
 KERNEL_NAMES = tuple(WRAPPERS)
 # the fleet's entry points with two routes (fleet.fleet_route), each
 # counted on its own
-ROUTED = ("fused_relax_batched", "converged_early_batched")
+ROUTED = ("fused_relax_batched", "converged_early_batched",
+          "scatter_min_batched", "pointer_jump_batched")
 ROUTES = ("lane", "global")
 
 
@@ -416,6 +420,18 @@ def host_ms(fn) -> float:
         sync()
         total += time.perf_counter() - t0
     return total / REPS * 1e3
+
+
+def torch_backend_warm_ms(run) -> float:
+    """Mean host-clock time of ``run(backend="torch")`` to
+    ``synchronize()``, ``PLAIN_FLEET_REPS`` calls (the caller has made
+    the cold call)."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(PLAIN_FLEET_REPS):
+        run(backend="torch")
+        sync()
+    return (time.perf_counter() - t0) / PLAIN_FLEET_REPS * 1e3
 
 
 def raises(fn, error) -> bool:
@@ -2221,6 +2237,15 @@ def on_card(g) -> Graph:
                  n_vertices=g.n_vertices)
 
 
+def lane_alone(name: str, launches: dict, routes: dict) -> None:
+    """Every routed entry point that a fleet's solve launched took the
+    lane route alone."""
+    for k in ROUTED:
+        if launches[k] and (routes[k]["lane"] <= 0 or routes[k]["global"]):
+            raise AssertionError(f"{name}: {k} did not take the lane route "
+                                 f"alone: {routes[k]}")
+
+
 def drive_fleet(kind: str) -> tuple:
     """One fleet through ``solve_batch`` on the card: labels of every lane
     equal scipy's, the ``torch`` backend's fleet bit for bit (launching no
@@ -2256,10 +2281,7 @@ def drive_fleet(kind: str) -> tuple:
               "pointer_jump_batched"):
         if launches[k] <= 0:
             raise AssertionError(f"{name}: did not launch {k}")
-    for k in ROUTED:
-        if routes[k]["lane"] <= 0 or routes[k]["global"]:
-            raise AssertionError(f"{name}: {k} did not take the lane route "
-                                 f"alone: {routes[k]}")
+    lane_alone(name, launches, routes)
     single = {k: v for k, v in launches.items()
               if v and not k.endswith("_batched")}
     if single:
@@ -2285,10 +2307,7 @@ def drive_fleet(kind: str) -> tuple:
         raise AssertionError(f"{name}: the torch backend's fleet launched "
                              f"{launch_counts()}")
     same_result(res, plain, f"{name}: the torch backend's fleet")
-    t0 = time.perf_counter()
-    run(backend="torch")
-    sync()
-    plain_warm_ms = (time.perf_counter() - t0) * 1e3
+    plain_warm_ms = torch_backend_warm_ms(run)
     # the loop of solo solves, each graph as it is (its own n and m)
     for g in solo[:2]:
         solve(g)
@@ -2318,6 +2337,7 @@ def drive_fleet(kind: str) -> tuple:
            "solo_over_batched": solo_ms / warm_ms,
            "torch_backend_cold_ms": plain_cold_ms,
            "torch_backend_warm_ms": plain_warm_ms,
+           "torch_backend_warm_reps": PLAIN_FLEET_REPS,
            "iterations_max": int(its.max()),
            "iterations_mean": float(its.float().mean()),
            "host_syncs": syncs["total"], "host_syncs_sites": syncs["sites"],
@@ -2387,12 +2407,12 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
     """The fleet's entry points against their plain versions on the rmat
     fleet (identity labels, one C-2 iteration, the fixed point, and a
     lane with a label outside it; no lane frozen, and every other lane
-    frozen), K1 and K6 on each route (the lane route at
-    :func:`fleet.fleet_route`'s c, at c = 1 and at c = 4, the global
-    route), and their entries of the kernels line: times at the first
-    sweep (K1 on each route, K2's order-1 stream), the fixed point and the
-    live fleet after one iteration (K6 on each route) and K7 after an L2
-    flush."""
+    frozen), K1, K6, K2 (the order-1 stream, ``run = m``) and K7 on each
+    route (the lane route at :func:`fleet.fleet_route`'s c, at c = 1 and
+    at c = 4, the global route), and their entries of the kernels line:
+    times on each route at the first sweep (K1, K2's order-1 stream), the
+    fixed point and the live fleet after one iteration (K6) and after an
+    L2 flush (K7)."""
     lanes_b, m = (int(x) for x in batched.src.shape)
     n = batched.n_vertices
     src, dst = batched.src, batched.dst
@@ -2409,6 +2429,8 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
     half[1::2, cv.DONE] = 1
     route = {kind: fleet.fleet_route(n, lanes_b, m, kind)
              for kind in ("relax", "converged")}
+    route["scatter"] = fleet.scatter_route(n, lanes_b, m)
+    route["jump"] = fleet.jump_route(n, lanes_b)
     if any(r.route != "lane" for r in route.values()):
         raise AssertionError(f"the rmat fleet is not on the lane route: "
                              f"{route}")
@@ -2431,15 +2453,23 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                         for r in variants("relax")))
             del want
             t, v = contour.mm_update_stream_batched(L, src, dst, n, 1)
+            want = blocked.scatter_min_batched_plain(L, t, v, n, lanes)
             err["scatter_min_batched"] = max(
                 err["scatter_min_batched"], max_abs_err(
-                    blocked.scatter_min_batched(L, t, v, n, lanes),
-                    blocked.scatter_min_batched_plain(L, t, v, n, lanes)))
-            del t, v
+                    blocked.scatter_min_batched(L, t, v, n, lanes), want),
+                max_abs_err(blocked.scatter_min_batched(
+                    L, t, v, n, lanes, run=m), want),
+                *(max_abs_err(blocked.scatter_min_batched_on(
+                    r, L, t, v, n, lanes, run=m), want)
+                  for r in variants("scatter")))
+            del t, v, want
+            want = cv.pointer_jump_batched_plain(L, n, lanes)
             err["pointer_jump_batched"] = max(
                 err["pointer_jump_batched"], max_abs_err(
-                    cv.pointer_jump_batched(L, n, lanes),
-                    cv.pointer_jump_batched_plain(L, n, lanes)))
+                    cv.pointer_jump_batched(L, n, lanes), want),
+                *(max_abs_err(cv.pointer_jump_batched_on(r, L, n, lanes),
+                              want) for r in variants("jump")))
+            del want
             jumped = cv.pointer_jump_batched_plain(L, n)
             early = [cv.converged_early_batched] + [
                 lambda *a, r=r: cv.converged_early_batched_on(r, *a)
@@ -2498,6 +2528,29 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                  "live_ms": early_ms(L1, lane_early)},
         "global": {"source": CONVERGED_SOURCE, "ms": early_ms(
             Lf, fleet.GLOBAL), "live_ms": early_ms(L1, fleet.GLOBAL)}}
+    def scatter_ms(r):
+        return time_ms(lambda: blocked.scatter_min_batched_on(
+            r, L0, t1, v1, n, run=m))
+
+    def jump_ms(r):
+        return time_each_ms(lambda: cv.pointer_jump_batched_on(r, L0, n),
+                            setup=flush_l2)
+
+    scatter_routes = {
+        "lane": {"source": FLEET_SOURCE,
+                 "blocks_per_lane": route["scatter"].blocks_per_lane,
+                 "ms": scatter_ms(route["scatter"]),
+                 "c1_ms": scatter_ms(fleet.FleetRoute("lane", 1)),
+                 "c4_ms": scatter_ms(fleet.FleetRoute("lane", 4))},
+        "global": {"source": SOURCE, "ms": scatter_ms(fleet.GLOBAL)}}
+    jump_routes = {
+        "lane": {"source": FLEET_SOURCE,
+                 "blocks_per_lane": route["jump"].blocks_per_lane,
+                 "ms": jump_ms(route["jump"]),
+                 "c1_ms": jump_ms(fleet.FleetRoute("lane", 1)),
+                 "c4_ms": jump_ms(fleet.FleetRoute("lane", 4))},
+        "global": {"source": CONVERGED_SOURCE,
+                   "ms": jump_ms(fleet.GLOBAL)}}
     live_edges, live_labels = witness_edges(L1, src, dst, n)
     Lf_copy = Lf.clone()
     shape = {"B": lanes_b, "n": n, "m": m, "labels": lanes_b * n}
@@ -2510,10 +2563,9 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
             "library_ms": None,
             **bound(8 * lanes_b * n + 8 * lanes_b * m, 5 * lanes_b * m)},
         "scatter_min_batched": {
-            "source": SOURCE, "state": "identity, order-1 stream",
-            "updates": k,
-            "ms": time_ms(lambda: blocked.scatter_min_batched(L0, t1, v1,
-                                                              n)),
+            "source": FLEET_SOURCE, "state": "identity, order-1 stream",
+            "updates": k, "ms": scatter_routes["lane"]["ms"],
+            "routes": scatter_routes,
             "plain_ms": time_ms(lambda: blocked.scatter_min_batched_plain(
                 L0, t1, v1, n)),
             "library_ms": time_ms(
@@ -2541,9 +2593,8 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
             "library_ms": None,
             **bound(8 * lanes_b * n, lanes_b * n)},
         "pointer_jump_batched": {
-            "source": CONVERGED_SOURCE, "state": "identity, L2 flushed",
-            "ms": time_each_ms(lambda: cv.pointer_jump_batched(L0, n),
-                               setup=flush_l2),
+            "source": FLEET_SOURCE, "state": "identity, L2 flushed",
+            "ms": jump_routes["lane"]["ms"], "routes": jump_routes,
             "plain_ms": time_each_ms(
                 lambda: cv.pointer_jump_batched_plain(L0, n),
                 setup=flush_l2),
@@ -2556,12 +2607,57 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                                           "bound_ms")}
                     for k, e in entries.items()},
           "route_times": {"fused_relax_batched": relax_routes,
-                          "converged_early_batched": early_routes},
+                          "converged_early_batched": early_routes,
+                          "scatter_min_batched": scatter_routes,
+                          "pointer_jump_batched": jump_routes},
           "live": entries["converged_early_batched"]["live"]})
     return {name: {"name": name, "route": "cuda",
                    "replaces": REPLACES[name], "max_abs_err": err[name],
                    "shape": shape, **entry}
             for name, entry in entries.items()}
+
+
+def drive_c11mm(name: str, batched: Graph, sizes) -> dict:
+    """C-11mm over a fleet (its two order-1 sweeps run K2 fleet, its
+    jumps K7 fleet): both on the lane route alone, the result bit for bit
+    the ``torch`` backend's; cold and warm walls (host clock, warm = mean
+    of ``REPS``) beside the ``torch`` backend's fleet (warm = mean of
+    ``PLAIN_FLEET_REPS``)."""
+    def run(**options):
+        return solve_batch(batched, batch_sizes=sizes, variant="C-11mm",
+                           **options)
+
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run()
+    sync()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches, routes = launch_counts(), route_counts()
+    for k in ("scatter_min_batched", "pointer_jump_batched"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: the fleet's C-11mm did not "
+                                 f"launch {k}")
+    lane_alone(f"{name} C-11mm", launches, routes)
+    warm_ms = host_ms(run)
+    t0 = time.perf_counter()
+    plain = run(backend="torch")
+    sync()
+    plain_cold_ms = (time.perf_counter() - t0) * 1e3
+    same_result(res, plain, f"{name}: the fleet's C-11mm against the "
+                            "torch backend's")
+    plain_warm_ms = torch_backend_warm_ms(run)
+    its = res.iterations.cpu()
+    row = {"phase": "batch_path", "fleet": name, "variant": "C-11mm",
+           "batched_cold_ms": cold_ms, "batched_warm_ms": warm_ms,
+           "torch_backend_cold_ms": plain_cold_ms,
+           "torch_backend_warm_ms": plain_warm_ms,
+           "torch_backend_warm_reps": PLAIN_FLEET_REPS,
+           "iterations_max": int(its.max()),
+           "iterations_mean": float(its.float().mean()),
+           "launches": launches, "routes": routes}
+    emit(row)
+    return row
 
 
 def phase_batch() -> tuple:
@@ -2571,21 +2667,7 @@ def phase_batch() -> tuple:
     row, batched, sizes = drive_fleet("rmat")
     rows.append(row)
     # the order-1 sweeps: C-11mm's warm-up runs K2's fleet entry point
-    reset_launch_counts()
-    res = solve_batch(batched, batch_sizes=sizes, variant="C-11mm")
-    sync()
-    launches = launch_counts()
-    if launches["scatter_min_batched"] <= 0:
-        raise AssertionError("the fleet's C-11mm did not launch "
-                             "scatter_min_batched")
-    same_result(res, solve_batch(batched, batch_sizes=sizes,
-                                 variant="C-11mm", backend="torch"),
-                "the fleet's C-11mm against the torch backend's")
-    rows.append({"phase": "batch_path", "fleet": row["fleet"],
-                 "variant": "C-11mm", "launches": launches,
-                 "routes": route_counts(),
-                 "iterations_max": int(res.iterations.max())})
-    emit(rows[-1])
+    rows.append(drive_c11mm(row["fleet"], batched, sizes))
     fixed = solve_batch(batched).labels
     kernels = fleet_kernels(batched, fixed)
     # launches a solve of the fleet's path: dense C-2 on the rmat fleet,
@@ -2596,10 +2678,12 @@ def phase_batch() -> tuple:
             "path": f"{source['fleet']}, {source.get('variant', 'C-2')}",
             "launches": source["launches"][key],
             **({"routes": source["routes"][key]} if key in ROUTED else {})}
-    del batched, fixed, res
+    del batched, fixed
     for kind in ("delaunay", "ragged"):
-        row, batched, _ = drive_fleet(kind)
+        row, batched, sizes = drive_fleet(kind)
         rows.append(row)
+        if kind == "ragged":
+            rows.append(drive_c11mm(row["fleet"], batched, sizes))
         del batched
     rows.append(fleet_check_scale())
     return rows, kernels

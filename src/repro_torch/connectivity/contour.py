@@ -240,7 +240,8 @@ def _make_fleet_step(variant: str, warmup: int, async_compress: int,
         if fuse and order == 2:
             return ops.fused_relax(L, src, dst, n, lanes)
         t, v = mm_update_stream_batched(L, src, dst, n, order)
-        return ops.scatter_min(L, t, v, n, lanes)
+        # the stream's 2 * order segments of [B, m]
+        return ops.scatter_min(L, t, v, n, lanes, run=int(src.shape[1]))
 
     def jump(L, lanes, out):
         return ops.pointer_jump(L, n, lanes)

@@ -51,12 +51,13 @@ graphs in one launch: lane ``b``'s vertex ``v`` is ``b * n + v`` in one
 each graph's own ids, and a lane whose ``done`` word in the fleet's
 ``[B, 4]`` loop state (``converged.fleet_state``) is set takes no part.
 Their plain versions do the same per-lane arithmetic and read nothing on
-the host.  :func:`fused_relax_batched` takes one of two routes, chosen by
-shape (``fleet.fleet_route``): the lane route (``csrc/fleet.cu``, each
-lane's labels in shared memory) or the global route (this module's
-``csrc/contour_mm.cu`` kernel), each counted in
-``fused_relax_batched.routes``; :func:`fused_relax_batched_on` runs a
-given route.
+the host.  Both take one of two routes, chosen by shape
+(``fleet.fleet_route``): the lane route (``csrc/fleet.cu``, each lane's
+labels in shared memory) or the global route (this module's
+``csrc/contour_mm.cu`` kernels), each counted in the wrapper's
+``routes``; ``*_batched_on`` runs a given route.
+:func:`scatter_min_batched` takes the lane route only for a stream laid
+out as ``[B, run]`` segments (``run=``, ``fleet.stream_segments``).
 
 Ids outside ``[0, n)`` (``n = len(L)``) raise ``IndexError`` on both
 devices: the plain versions check before they gather, and the kernels
@@ -603,9 +604,10 @@ def _relax_fleet(route, L, src, dst, n, lanes, lanes_b) -> torch.Tensor:
 
 def scatter_min_batched_plain(L: torch.Tensor, targets: torch.Tensor,
                               values: torch.Tensor, n: int,
-                              lanes: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
-    """Plain version of :func:`scatter_min_batched`."""
+                              lanes: Optional[torch.Tensor] = None, *,
+                              run: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`scatter_min_batched` (``run``, the stream's
+    layout, changes nothing here)."""
     idx = targets.long()
     frozen = _frozen(lanes)
     if frozen is not None:
@@ -613,29 +615,78 @@ def scatter_min_batched_plain(L: torch.Tensor, targets: torch.Tensor,
     return L.scatter_reduce(0, idx, values, "amin", include_self=True)
 
 
-def scatter_min_batched(L: torch.Tensor, targets: torch.Tensor,
-                        values: torch.Tensor, n: int,
-                        lanes: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """``L.at[targets].min(values)`` over a fleet's update stream, whose
-    targets are ids of the ``[B * n]`` label array (the lane of an update
-    is its target // n); a lane frozen in ``lanes`` takes no update."""
+def _check_stream(L: torch.Tensor, targets: torch.Tensor,
+                  values: torch.Tensor, n: int,
+                  lanes: Optional[torch.Tensor], run: Optional[int]) -> int:
+    """Check a fleet's update stream and lane words; returns ``B``."""
     check_updates(L, targets, values, None)
     lanes_b = int(L.shape[0]) // max(n, 1)
     check_lane_words(L, n, lanes_b, lanes)
+    fleet.stream_segments(int(targets.shape[0]), lanes_b, run)
+    return lanes_b
+
+
+def scatter_min_batched(L: torch.Tensor, targets: torch.Tensor,
+                        values: torch.Tensor, n: int,
+                        lanes: Optional[torch.Tensor] = None, *,
+                        run: Optional[int] = None) -> torch.Tensor:
+    """``L.at[targets].min(values)`` over a fleet's update stream, whose
+    targets are ids of the ``[B * n]`` label array (the lane of an update
+    is its target // n); a lane frozen in ``lanes`` takes no update.
+    ``run=m`` states that the stream is segments of ``[B, m]`` (lane
+    ``b``'s updates of segment ``r`` at ``(r * B + b) * m``, as
+    ``contour.mm_update_stream_batched`` emits them), which lets it take
+    the lane route; ``run=None`` takes the global route."""
+    lanes_b = _check_stream(L, targets, values, n, lanes, run)
     if not on_cuda(L):
-        return scatter_min_batched_plain(L, targets, values, n, lanes)
+        return scatter_min_batched_plain(L, targets, values, n, lanes,
+                                         run=run)
+    route = fleet.scatter_route(n, lanes_b, run,
+                                fleet.fleet_device(L.device))
+    return _scatter_fleet(route, L, targets, values, n, lanes, lanes_b, run)
+
+
+scatter_min_batched.launches = 0
+# launches by route (fleet.FleetRoute.route)
+scatter_min_batched.routes = {"lane": 0, "global": 0}
+
+
+def scatter_min_batched_on(route: fleet.FleetRoute, L: torch.Tensor,
+                           targets: torch.Tensor, values: torch.Tensor,
+                           n: int, lanes: Optional[torch.Tensor] = None, *,
+                           run: Optional[int] = None) -> torch.Tensor:
+    """:func:`scatter_min_batched` on CUDA tensors on ``route`` (the lane
+    route needs ``run``), counted on :func:`scatter_min_batched`, as
+    :func:`fused_relax_batched_on`."""
+    lanes_b = _check_stream(L, targets, values, n, lanes, run)
+    if not on_cuda(L):
+        raise ValueError("the fleet's routes run on CUDA tensors")
+    if route.route == "lane" and run is None:
+        raise ValueError("the lane route takes a stream of [B, run] "
+                         "segments: pass run")
+    return _scatter_fleet(route, L, targets, values, n, lanes, lanes_b, run)
+
+
+def _scatter_fleet(route, L, targets, values, n, lanes, lanes_b,
+                   run) -> torch.Tensor:
+    """The launch on ``route`` of checked CUDA tensors."""
     L, targets, values = L.contiguous(), targets.contiguous(), \
         values.contiguous()
     out = L.clone()
     k = int(targets.shape[0])
-    if k > 0:
-        launch_counted(load_library().contour_scatter_min_batched,
-                       L.data_ptr(), out.data_ptr(), targets.data_ptr(),
-                       values.data_ptr(), k, int(L.shape[0]), n,
-                       _ptr(lanes), wrapper=scatter_min_batched,
-                       device=L.device)
+    if k > 0 and lanes_b > 0:
+        if route.route == "lane":
+            launch_counted(fleet.load_library().contour_fleet_scatter_lane,
+                           L.data_ptr(), out.data_ptr(), targets.data_ptr(),
+                           values.data_ptr(), int(run),
+                           fleet.stream_segments(k, lanes_b, run), lanes_b,
+                           n, _ptr(lanes), route.blocks_per_lane,
+                           wrapper=scatter_min_batched, device=L.device)
+        else:
+            launch_counted(load_library().contour_scatter_min_batched,
+                           L.data_ptr(), out.data_ptr(), targets.data_ptr(),
+                           values.data_ptr(), k, int(L.shape[0]), n,
+                           _ptr(lanes), wrapper=scatter_min_batched,
+                           device=L.device)
+        scatter_min_batched.routes[route.route] += 1
     return out
-
-
-scatter_min_batched.launches = 0

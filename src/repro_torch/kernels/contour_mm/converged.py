@@ -35,10 +35,11 @@ lane that is done, so a lane freezes at the iteration its test passes;
 the host reads the fleet's ``(done, it)`` once per :data:`CHUNK`
 iterations (:func:`device_loop` on ``fleet``), not once per lane.
 :func:`batch_ops` gives a backend's fleet functions, those of
-``blocked`` (K1, K2) included.  :func:`converged_early_batched` takes the
-lane route (``csrc/fleet.cu``) or the global route (``csrc/converged.cu``)
-by shape, as ``blocked.fused_relax_batched`` does
-(:func:`converged_early_batched_on` runs a given route).
+``blocked`` (K1, K2) included.  :func:`converged_early_batched` and
+:func:`pointer_jump_batched` take the lane route (``csrc/fleet.cu``) or
+the global route (``csrc/converged.cu``) by shape, as
+``blocked.fused_relax_batched`` does (``*_batched_on`` runs a given
+route).
 
 Each wrapper runs its kernel on a CUDA tensor, or raises; its plain torch
 version (``*_plain``, and :func:`loop_step_plain` for the step) runs when
@@ -490,23 +491,58 @@ def pointer_jump_batched(L: torch.Tensor, n: int,
                          ) -> torch.Tensor:
     """One pointer-jump round of a fleet's ``[B * n]`` labels, out of
     place; a copy of each lane whose ``done`` word in ``lanes`` is set
-    (None: every lane jumps)."""
-    check_int32("L", L, L.device)
-    lanes_b = int(L.shape[0]) // max(n, 1)
-    check_lane_words(L, n, lanes_b, lanes)
+    (None: every lane jumps).  One launch, on the route
+    :func:`fleet.jump_route` picks."""
+    lanes_b = _check_jump(L, n, lanes)
     if not on_cuda(L):
         return pointer_jump_batched_plain(L, n, lanes)
-    L = L.contiguous()
-    out = torch.empty_like(L)
-    if int(L.shape[0]) > 0:
-        launch_counted(load_library().contour_pointer_jump_batched,
-                       L.data_ptr(), out.data_ptr(), int(L.shape[0]), n,
-                       None if lanes is None else lanes.data_ptr(),
-                       wrapper=pointer_jump_batched, device=L.device)
-    return out
+    route = fleet.jump_route(n, lanes_b, fleet.fleet_device(L.device))
+    return _jump_fleet(route, L, n, lanes, lanes_b)
 
 
 pointer_jump_batched.launches = 0
+# launches by route (fleet.FleetRoute.route)
+pointer_jump_batched.routes = {"lane": 0, "global": 0}
+
+
+def pointer_jump_batched_on(route: fleet.FleetRoute, L: torch.Tensor, n: int,
+                            lanes: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """:func:`pointer_jump_batched` on CUDA tensors on ``route``, counted
+    on :func:`pointer_jump_batched`, as
+    :func:`blocked.fused_relax_batched_on`."""
+    lanes_b = _check_jump(L, n, lanes)
+    if not on_cuda(L):
+        raise ValueError("the fleet's routes run on CUDA tensors")
+    return _jump_fleet(route, L, n, lanes, lanes_b)
+
+
+def _check_jump(L: torch.Tensor, n: int,
+                lanes: Optional[torch.Tensor]) -> int:
+    check_int32("L", L, L.device)
+    lanes_b = int(L.shape[0]) // max(n, 1)
+    check_lane_words(L, n, lanes_b, lanes)
+    return lanes_b
+
+
+def _jump_fleet(route, L, n, lanes, lanes_b) -> torch.Tensor:
+    """The launch on ``route`` of checked CUDA tensors."""
+    L = L.contiguous()
+    out = torch.empty_like(L)
+    lanes_ptr = None if lanes is None else lanes.data_ptr()
+    if int(L.shape[0]) > 0:
+        if route.route == "lane":
+            launch_counted(fleet.load_library().contour_fleet_jump_lane,
+                           L.data_ptr(), out.data_ptr(), lanes_b, n,
+                           lanes_ptr, route.blocks_per_lane,
+                           wrapper=pointer_jump_batched, device=L.device)
+        else:
+            launch_counted(load_library().contour_pointer_jump_batched,
+                           L.data_ptr(), out.data_ptr(), int(L.shape[0]), n,
+                           lanes_ptr, wrapper=pointer_jump_batched,
+                           device=L.device)
+        pointer_jump_batched.routes[route.route] += 1
+    return out
 
 
 class FleetOps(NamedTuple):

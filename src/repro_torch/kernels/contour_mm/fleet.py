@@ -1,32 +1,40 @@
-"""The fleet's lane-resident kernels: K1's order-2 sweep and K6's
-early-convergence test with each lane's labels in shared memory, the
-route that picks them by shape, and plain replays of their schedules.
+"""The fleet's lane-resident kernels: K1's order-2 sweep, K6's
+early-convergence test, K2's scatter-min of an update stream and K7's
+pointer-jump round with each lane's labels in shared memory, the route
+that picks them by shape, and plain replays of their schedules.
 
-The fleet's entry points, :func:`blocked.fused_relax_batched` and
-:func:`converged.converged_early_batched`, run one of two routes on the
-card, chosen by :func:`fleet_route` from ``n``, ``B``, ``m`` and the card
-(never after a failure: a launch that is refused raises):
+The fleet's entry points, :func:`blocked.fused_relax_batched`,
+:func:`converged.converged_early_batched`,
+:func:`blocked.scatter_min_batched` and
+:func:`converged.pointer_jump_batched`, run one of two routes on the
+card, chosen by :func:`fleet_route` from ``n``, ``B``, the items a lane's
+blocks share and the card (never after a failure: a launch that is
+refused raises):
 
 * ``"lane"`` (``csrc/fleet.cu``): a block holds one lane's ``n`` labels
   in dynamic shared memory (``8n`` bytes for K1's input and output, ``4n``
-  for K6) and streams the lane's contiguous edges through a ring of tiles
-  in shared memory, filled by ``cp.async.bulk`` copies.
-  ``blocks_per_lane`` (``c``) splits a lane's edges over ``c`` blocks
-  where ``B`` alone does not fill the card;
+  for K6, K2 and K7) and streams the lane's contiguous edges (K2: its runs
+  of updates, :func:`stream_segments`) through a ring of tiles in shared
+  memory, filled by ``cp.async.bulk`` copies; K7 reads its lane's labels
+  alone.  ``blocks_per_lane`` (``c``) splits a lane's edges (K2: each of
+  its runs; K7: its labels) over ``c`` blocks where ``B`` alone does not
+  fill the card;
 * ``"global"``: the kernels of ``contour_mm.cu`` / ``converged.cu`` (an
   item a thread, every label gathered from L2), for lanes whose labels do
-  not fit a block's shared memory.
+  not fit a block's shared memory, and for K2's streams of no stated
+  layout (``run=None``).
 
 This is the card's counterpart of the reference's choice of the
 whole-L-in-VMEM tile for graphs of ``n <= 4096``
 (``repro.connectivity.planner.heuristics.SINGLE_TILE_MAX_N``), which is
 the size of a lane of the fleets ``solve_batch`` serves.
 
-:func:`relax_lane_replay` and :func:`converged_lane_replay` replay the
-lane route block by block in plain torch (each block's own copies of its
-lane's labels, its slice of the edges tile by tile, the merge of what it
-lowered); the CPU tests hold them to the plain versions and to the
-reference.
+:func:`relax_lane_replay`, :func:`converged_lane_replay`,
+:func:`scatter_lane_replay` and :func:`jump_lane_replay` replay the lane
+route block by block in plain torch (each block's own copies of its
+lane's labels, its slice of the edges or updates tile by tile, the merge
+of what it lowered); the CPU tests hold them to the plain versions and to
+the reference.
 """
 from __future__ import annotations
 
@@ -46,11 +54,12 @@ LIBRARY = "contour_fleet"
 
 class KernelShape(NamedTuple):
     """A lane kernel's shape (``csrc/fleet.cu``'s ``RelaxCfg``,
-    ``TestCfg``): threads a block, edges a tile, the ring's stages and
-    its bytes (each stage a tile of src and of dst, each in a 16-byte
-    window 4 ints wider), the blocks an SM its registers allow
-    (``__launch_bounds__``), and the label arrays it holds in shared
-    memory."""
+    ``TestCfg``, ``ScatterCfg``, ``JumpCfg``): threads a block, items
+    (edges, updates, labels) a tile, the ring's stages and its bytes (each
+    stage a tile of src and of dst, or of targets and values, each in a
+    16-byte window 4 ints wider; K7 has none), the blocks an SM its
+    registers allow (``__launch_bounds__``), and the label arrays it holds
+    in shared memory."""
 
     threads: int
     tile: int
@@ -67,10 +76,14 @@ def _shape(threads: int, edges: int, stages: int, min_blocks: int,
                        min_blocks, label_arrays)
 
 
-# K1 ("relax": input and output labels) and K6 ("converged"), as timed
-# against other shapes by tools/fleet_variants.py (PERF.md)
+# K1 ("relax": input and output labels), K6 ("converged"), K2
+# ("scatter": one array, its input read again from L2 at the merge) and K7
+# ("jump", no ring), as timed against other shapes by
+# tools/fleet_variants.py (PERF.md), in csrc/fleet.cu's order
 SHAPES = {"relax": _shape(512, 8, 2, 2, 2),
-          "converged": _shape(256, 8, 2, 4, 1)}
+          "converged": _shape(256, 8, 2, 4, 1),
+          "scatter": _shape(512, 8, 2, 2, 1),
+          "jump": _shape(512, 8, 0, 4, 1)}
 # room for the kernels' static shared memory (mbarriers and flags)
 STATIC_BYTES = 128
 # the fewest tiles of edges a slice of a lane is given when c > 1: a block
@@ -124,13 +137,15 @@ def lane_cap(kind: str, device: FleetDevice = H100) -> int:
 
 def fleet_route(n: int, lanes_b: int, m: int, kind: str,
                 device: Optional[FleetDevice] = None) -> FleetRoute:
-    """The route of a fleet of ``lanes_b`` lanes of ``n`` labels and ``m``
-    edges for ``kind`` (``"relax"``: K1, ``"converged"``: K6): ``"lane"``
-    where a lane's labels fit a block's shared memory, with ``c`` blocks a
-    lane (1 where the lanes fill the card's block slots alone, else as
-    many as fill them, no slice below :data:`MIN_SLICE_TILES` tiles);
-    ``"global"`` above.  ``device`` defaults to the current card's
-    (:func:`fleet_device`)."""
+    """The route of a fleet of ``lanes_b`` lanes of ``n`` labels for
+    ``kind`` (``"relax"``: K1, ``"converged"``: K6, ``"scatter"``: K2,
+    ``"jump"``: K7), whose blocks of a lane share ``m`` items (K1, K6: the
+    lane's edges; K2: a run of its updates; K7: its ``n`` labels):
+    ``"lane"`` where a lane's labels fit a block's shared memory, with
+    ``c`` blocks a lane (1 where the lanes fill the card's block slots
+    alone, else as many as fill them, no slice below
+    :data:`MIN_SLICE_TILES` tiles); ``"global"`` above.  ``device``
+    defaults to the current card's (:func:`fleet_device`)."""
     if kind not in SHAPES:
         raise ValueError(f"kind must be one of {sorted(SHAPES)}, got "
                          f"{kind!r}")
@@ -145,6 +160,49 @@ def fleet_route(n: int, lanes_b: int, m: int, kind: str,
     slots = per_sm * device.sms
     c = min(slots // max(lanes_b, 1), m // (MIN_SLICE_TILES * shape.tile))
     return FleetRoute("lane", max(1, c))
+
+
+def stream_segments(k: int, lanes_b: int, run: Optional[int]) -> int:
+    """The segments of a fleet's update stream of ``k`` updates laid out
+    as ``[B, run]`` segments (lane ``b``'s run of segment ``r`` at
+    ``(r * B + b) * run``; ``contour.mm_update_stream_batched`` emits
+    ``2 * order`` of them, ``run = m``); 0 for ``run=None`` (no stated
+    layout).  Raises ValueError where ``k`` is not a whole number of
+    segments."""
+    if run is None:
+        return 0
+    run = int(run)
+    if run <= 0:
+        raise ValueError(f"run must be a positive int, got {run}")
+    seg = lanes_b * run
+    if (seg == 0 and k) or (seg and k % seg):
+        raise ValueError(f"the stream's {k} updates are not a whole number "
+                         f"of [B, run] = [{lanes_b}, {run}] segments")
+    return k // seg if seg else 0
+
+
+def scatter_route(n: int, lanes_b: int, run: Optional[int],
+                  device: Optional[FleetDevice] = None) -> FleetRoute:
+    """K2 fleet's route: :data:`GLOBAL` for a stream of no stated layout
+    (``run=None``), else :func:`fleet_route` with a run's updates as the
+    items a lane's blocks share."""
+    if run is None:
+        return GLOBAL
+    return fleet_route(n, lanes_b, int(run), "scatter", device)
+
+
+def jump_route(n: int, lanes_b: int,
+               device: Optional[FleetDevice] = None) -> FleetRoute:
+    """K7 fleet's route: :func:`fleet_route` with the lane's labels as the
+    items its blocks share."""
+    return fleet_route(n, lanes_b, n, "jump", device)
+
+
+def jump_bounds(n: int, c: int, part: int) -> Tuple[int, int]:
+    """Labels ``[lo, hi)`` of a lane that K7's block ``part`` of ``c``
+    writes: :func:`slice_bounds` over the lane's 16-byte vectors."""
+    lo, hi = slice_bounds(-(-n // 4), c, part)
+    return min(n, 4 * lo), min(n, 4 * hi)
 
 
 def load_library() -> ctypes.CDLL:
@@ -162,6 +220,11 @@ def load_library() -> ctypes.CDLL:
     lib.contour_fleet_converged_lane.argtypes = [_P, _P, _P, i64, i64, i64,
                                                  _P, _P, i32, _P]
     lib.contour_fleet_converged_lane.restype = i32
+    lib.contour_fleet_scatter_lane.argtypes = [_P, _P, _P, _P, i64, i64, i64,
+                                               i64, _P, i32, _P]
+    lib.contour_fleet_scatter_lane.restype = i32
+    lib.contour_fleet_jump_lane.argtypes = [_P, _P, i64, i64, _P, i32, _P]
+    lib.contour_fleet_jump_lane.restype = i32
     return lib
 
 
@@ -320,3 +383,82 @@ def converged_lane_replay(L: torch.Tensor, src: torch.Tensor,
     fleet_w[DONE] = int(bool((lanes_w[:, DONE] != 0).all()))
     fleet_w[TICKET] = 0
     return tiles
+
+
+def scatter_lane_replay(L: torch.Tensor, targets: torch.Tensor,
+                        values: torch.Tensor, n: int,
+                        lanes: Optional[torch.Tensor] = None, *, run: int,
+                        blocks_per_lane: int = 1) -> torch.Tensor:
+    """K2 fleet's lane route, block by block: each block of lane ``b``
+    (live or not) takes its slice of each of the lane's runs, tile by
+    tile; a live lane's block mins an in-lane update into its copy of the
+    lane's labels when it lowers the copy (a frozen lane's block drops
+    them), and an update to another lane's target in ``[0, B * n)`` into
+    the global output when that lane is live and the update lowers the
+    target's input label; then a live lane's block mins the entries of its
+    copy below their input into the copy of ``L`` that the call returns.
+    A target outside ``[0, B * n)`` is skipped, as on the card."""
+    lanes_b = int(L.shape[0]) // n
+    size = lanes_b * n
+    segs = stream_segments(int(targets.shape[0]), lanes_b, run)
+    tile = SHAPES["scatter"].tile
+    done = (torch.zeros(lanes_b, dtype=torch.bool) if lanes is None
+            else lanes[:, DONE] != 0)
+    out = L.clone()
+    for b in range(lanes_b):
+        base = b * n
+        lane_in = L[base:base + n]
+        live = not bool(done[b])
+        for part in range(blocks_per_lane):
+            lo, hi = slice_bounds(run, blocks_per_lane, part)
+            own = lane_in.clone()
+            for r in range(segs):
+                first = (r * lanes_b + b) * run
+                for e in range(first + lo, first + hi, tile):
+                    t = targets[e:min(first + hi, e + tile)].long()
+                    v = values[e:min(first + hi, e + tile)]
+                    mine = _inside(t - base, n)
+                    if live:
+                        o = t[mine] - base
+                        keep = v[mine] < own[o]
+                        own.scatter_reduce_(0, o[keep], v[mine][keep],
+                                            "amin")
+                    t, v = t[~mine], v[~mine]
+                    ok = _inside(t, size)
+                    t, v = t[ok], v[ok]
+                    keep = ~done[t // n] & (v < L[t])
+                    out.scatter_reduce_(0, t[keep], v[keep], "amin")
+            if live:
+                seg = out[base:base + n]
+                out[base:base + n] = torch.where(own < lane_in,
+                                                 torch.minimum(seg, own),
+                                                 seg)
+    return out
+
+
+def jump_lane_replay(L: torch.Tensor, n: int,
+                     lanes: Optional[torch.Tensor] = None, *,
+                     blocks_per_lane: int = 1) -> torch.Tensor:
+    """K7 fleet's lane route, block by block: block ``part`` of a lane
+    writes the lane's labels :func:`jump_bounds` gives it, each
+    ``min(L[v], L[L[v]])`` with the second level from its copy of the lane
+    (from ``L`` for a label of another lane), a label outside ``[0, B *
+    n)`` copied; a frozen lane's blocks copy it."""
+    lanes_b = int(L.shape[0]) // n
+    size = lanes_b * n
+    out = torch.empty_like(L)
+    for b in range(lanes_b):
+        base = b * n
+        lane_in = L[base:base + n].clone()
+        frozen = lanes is not None and bool(lanes[b, DONE])
+        for part in range(blocks_per_lane):
+            lo, hi = jump_bounds(n, blocks_per_lane, part)
+            x = lane_in[lo:hi].long()
+            if frozen:
+                out[base + lo:base + hi] = lane_in[lo:hi]
+                continue
+            ok = _inside(x, size)
+            second = _labels(L, lane_in, base, torch.where(ok, x, 0))
+            out[base + lo:base + hi] = torch.where(
+                ok, torch.minimum(x, second.long()), x).to(L.dtype)
+    return out

@@ -1335,9 +1335,9 @@ def test_fleet_device_is_the_cards(cuda):
     assert device.sms == props.multi_processor_count
     assert 48 << 10 < device.smem_block <= device.smem_sm
     # the kernels' shapes as the route counts them
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * (5 * len(fleet.SHAPES)))()
     fleet.load_library().contour_fleet_shapes(out)
-    for i, kind in enumerate(("relax", "converged")):
+    for i, kind in enumerate(fleet.SHAPES):
         shape = fleet.SHAPES[kind]
         assert list(out)[5 * i:5 * i + 5] == [
             shape.threads, shape.tile, shape.stages, shape.ring_bytes,
@@ -1355,3 +1355,151 @@ def test_fleet_past_the_id_space_is_refused_before_a_launch(cuda):
         solve_batch(Graph(src=src, dst=src, n_vertices=1 << 30))
     assert blocked.fused_relax_batched.launches == 0
     assert cv.converged_early_batched.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# K2 fleet and K7 fleet on each route
+# ---------------------------------------------------------------------------
+
+
+def _unaligned(t):
+    """``t`` as a view that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+def _hold_scatter_jump(src, dst, states, n, lanes, scatter_routes,
+                       jump_routes, orders=(1, 2, 3)):
+    """K2 fleet (each order's stream, ``run = m``, also as an unaligned
+    view) and K7 fleet on each route against their plain versions, bit
+    for bit; each launch counted on its route."""
+    from repro_torch.connectivity import contour
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    m = int(src.shape[1])
+    for L in states:
+        for lw in (None, lanes):
+            for order in orders:
+                t, v = contour.mm_update_stream_batched(L, src, dst, n,
+                                                        order)
+                want = blocked.scatter_min_batched_plain(L, t, v, n, lw)
+                assert torch.equal(
+                    blocked.scatter_min_batched(L, t, v, n, lw, run=m),
+                    want)
+                for tt, vv in ((t, v), (_unaligned(t), _unaligned(v))):
+                    for route in scatter_routes:
+                        before = blocked.scatter_min_batched.routes[
+                            route.route]
+                        got = blocked.scatter_min_batched_on(
+                            route, L, tt, vv, n, lw, run=m)
+                        assert torch.equal(got, want), (route, order)
+                        assert blocked.scatter_min_batched.routes[
+                            route.route] == before + 1
+            want = cv.pointer_jump_batched_plain(L, n, lw)
+            assert torch.equal(cv.pointer_jump_batched(L, n, lw), want)
+            for LL in (L, _unaligned(L)):
+                for route in jump_routes:
+                    before = cv.pointer_jump_batched.routes[route.route]
+                    got = cv.pointer_jump_batched_on(route, LL, n, lw)
+                    assert torch.equal(got, want), route
+                    assert cv.pointer_jump_batched.routes[route.route] == \
+                        before + 1
+
+
+@pytest.mark.parametrize("lanes_b", [1, 8, 33])
+def test_fleet_scatter_and_jump_routes_match_plain_on_the_card(cuda,
+                                                               lanes_b):
+    from repro_torch.kernels.contour_mm import converged as cv
+    from repro_torch.kernels.contour_mm import fleet
+
+    n = 700
+    # m (a run) odd, and long enough for K2 to split its runs at B <= 8
+    m = 8 * fleet.SHAPES["scatter"].tile + 13
+    src, dst, states, lanes = _random_fleet(cuda, lanes_b, n, m, lanes_b)
+    fixed = states[1]
+    for _ in range(30):
+        fixed = cv.pointer_jump_batched_plain(
+            blocked.fused_relax_batched_plain(fixed, src, dst, n), n)
+    states.append(fixed)
+    if lanes_b > 1:
+        # lane 0 points into lane 1 (frozen in `lanes`), lane 1 into lane 2
+        out = _outside(states[1], n)
+        out[n + 4], out[n + 5] = 2 * n + 1 if lanes_b > 2 else 0, 3
+        states.append(out)
+    chosen = fleet.scatter_route(n, lanes_b, m)
+    assert chosen.route == "lane"
+    if lanes_b <= 8:
+        assert chosen.blocks_per_lane > 1
+    jump = fleet.jump_route(n, lanes_b)
+    assert jump.route == "lane"
+    lane = [fleet.FleetRoute("lane", 1), fleet.FleetRoute("lane", 4)]
+    _hold_scatter_jump(src, dst, states, n, lanes,
+                       [chosen, *lane, fleet.GLOBAL],
+                       [jump, *lane, fleet.GLOBAL])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("lanes_b", [1, 8, 33])
+@pytest.mark.parametrize("kind", ["scatter", "jump"])
+def test_fleet_scatter_and_jump_at_the_shared_memory_cap_on_the_card(
+        cuda, kind, lanes_b):
+    from repro_torch.kernels.contour_mm import fleet
+
+    device = fleet.fleet_device(cuda)
+    cap = fleet.lane_cap(kind, device)
+    m = 2 * fleet.SHAPES["scatter"].tile + 5
+    lane = [fleet.FleetRoute("lane", 1), fleet.FleetRoute("lane", 4)]
+    for n, route in ((cap, "lane"), (cap + 1, "global")):
+        src, dst, states, lanes = _random_fleet(cuda, lanes_b, n, m, n)
+        if lanes_b > 1:
+            states.append(_outside(states[1], n))
+        chosen = (fleet.scatter_route(n, lanes_b, m) if kind == "scatter"
+                  else fleet.jump_route(n, lanes_b))
+        assert chosen.route == route
+        routes = [chosen] + (lane if route == "lane" else [])
+        _hold_scatter_jump(
+            src, dst, states, n, lanes,
+            routes if kind == "scatter" else [fleet.GLOBAL],
+            routes if kind == "jump" else [fleet.GLOBAL], orders=(1, 3))
+    torch.cuda.synchronize()
+
+
+def test_k2_and_k7_lane_launches_past_shared_memory_raise(cuda):
+    from repro_torch.connectivity import contour
+    from repro_torch.kernels.contour_mm import converged as cv
+    from repro_torch.kernels.contour_mm import fleet
+
+    device = fleet.fleet_device(cuda)
+    for kind in ("scatter", "jump"):
+        n = fleet.lane_cap(kind, device) + fleet.STATIC_BYTES // 4 + 1
+        src, dst, states, _ = _random_fleet(cuda, 1, n, 64, 0)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            if kind == "scatter":
+                t, v = contour.mm_update_stream_batched(states[0], src, dst,
+                                                        n, 1)
+                blocked.scatter_min_batched_on(fleet.FleetRoute("lane"),
+                                               states[0], t, v, n, run=64)
+            else:
+                cv.pointer_jump_batched_on(fleet.FleetRoute("lane"),
+                                           states[0], n)
+
+
+@pytest.mark.parametrize("variant", ["C-1", "C-3", "C-11mm"])
+def test_fleet_order_h_sweeps_take_the_lane_routes_on_the_card(cuda,
+                                                               variant):
+    """solve_batch's order-1 and order-h sweeps (K2 fleet) and jumps (K7
+    fleet) go through the lane route and equal the torch backend's fleet
+    bit for bit."""
+    from repro_torch import solve_batch
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    fleet_graphs, _ = _fleet(cuda)
+    for fn in (blocked.scatter_min_batched, cv.pointer_jump_batched):
+        fn.routes.update({"lane": 0, "global": 0})
+    card = solve_batch(fleet_graphs, variant=variant)
+    plain = solve_batch(fleet_graphs, variant=variant, backend="torch")
+    for key in ("labels", "iterations", "converged", "edges_visited"):
+        assert torch.equal(getattr(card, key), getattr(plain, key)), key
+    for fn in (blocked.scatter_min_batched, cv.pointer_jump_batched):
+        assert fn.routes["lane"] > 0 and fn.routes["global"] == 0, fn

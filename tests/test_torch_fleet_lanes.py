@@ -1,12 +1,13 @@
 """The fleet's lane route (``kernels/contour_mm/fleet.py``), on the CPU:
-the plain replays of its two kernels' schedules against the plain
+the plain replays of its four kernels' schedules against the plain
 versions and, lane by lane, against the reference, bit for bit; and the
 route's choice by shape.
 
 A replay runs the lane kernels block by block as the card does: each
 block copies its lane's labels, takes one of ``c`` slices of the lane's
-edges, sweeps (K1) or tests (K6, tile by tile, stopping at the first tile
-with a witness) and merges what it found.  The fleets are made with numpy
+edges (K2: of each of its runs of updates; K7: of its labels), sweeps
+(K1), scatters (K2), tests (K6, tile by tile, stopping at the first tile
+with a witness) or jumps (K7) and merges what it found.  The fleets are made with numpy
 from a seed: lanes of different sizes padded to one ``n`` and ``m`` (``m``
 not a multiple of the tile), some lanes frozen, and a label that points
 outside its lane.
@@ -20,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.connectivity import minmap as ref_mm  # noqa: E402
 
+from repro_torch.connectivity import contour  # noqa: E402
 from repro_torch.kernels.contour_mm import blocked  # noqa: E402
 from repro_torch.kernels.contour_mm import converged as cv  # noqa: E402
 from repro_torch.kernels.contour_mm import fleet  # noqa: E402
@@ -199,6 +201,101 @@ def test_slices_cover_the_lane_once():
             assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
 
 
+def test_jump_slices_cover_the_lane_once_in_vectors():
+    for n in (1, 7, N, 4096):
+        for c in BLOCKS:
+            bounds = [fleet.jump_bounds(n, c, p) for p in range(c)]
+            assert bounds[0][0] == 0 and bounds[-1][1] == n
+            assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+            assert all(lo % 4 == 0 or lo == n for lo, _ in bounds)
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+@pytest.mark.parametrize("lanes_b", LANES)
+def test_scatter_replay_matches_the_plain_version(lanes_b, blocks):
+    src, dst = _fleet(lanes_b, seed=20 + lanes_b)
+    for L in _states(src, dst, count=1):
+        for labels in (L, _outside(L)):
+            for lanes in (None, _frozen(lanes_b)):
+                for order in (1, 2, 3):
+                    t, v = contour.mm_update_stream_batched(labels, src, dst,
+                                                            N, order)
+                    want = blocked.scatter_min_batched_plain(labels, t, v, N,
+                                                             lanes)
+                    got = fleet.scatter_lane_replay(
+                        labels, t, v, N, lanes, run=M,
+                        blocks_per_lane=blocks)
+                    assert torch.equal(got, want), order
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+def test_scatter_replay_matches_the_reference_lane_by_lane(blocks):
+    lanes_b = 8
+    src, dst = _fleet(lanes_b, seed=8)
+    lanes = _frozen(lanes_b)
+    for L in _states(src, dst, count=2):
+        for order in (1, 3):
+            t, v = contour.mm_update_stream_batched(L, src, dst, N, order)
+            got = fleet.scatter_lane_replay(L, t, v, N, lanes, run=M,
+                                            blocks_per_lane=blocks)
+            for b in range(lanes_b):
+                Lb = _lane(L, b).numpy()
+                want = Lb if lanes[b, cv.DONE] else np.asarray(
+                    ref_mm.mm_relax(jnp.asarray(Lb),
+                                    jnp.asarray(src[b].numpy()),
+                                    jnp.asarray(dst[b].numpy()), order))
+                np.testing.assert_array_equal(_lane(got, b).numpy(), want)
+
+
+def test_a_frozen_lane_still_sends_its_updates_to_live_lanes():
+    """A K2 update is frozen by its target's lane, not by the run it sits
+    in: a frozen lane's run that targets a live lane still lowers it."""
+    lanes_b = 3
+    L = torch.arange(lanes_b * N, dtype=torch.int32)
+    lanes = torch.zeros((lanes_b, 4), dtype=torch.int32)
+    lanes[0, cv.DONE] = 1
+    t = torch.full((lanes_b * M,), 0, dtype=torch.int32)
+    v = torch.zeros_like(t)
+    t[:M] = 2 * N + 7          # lane 0's run: into live lane 2
+    t[M:2 * M] = 0             # lane 1's run: into frozen lane 0
+    t[2 * M:] = 2 * N + 9      # lane 2's own
+    want = blocked.scatter_min_batched_plain(L, t, v, N, lanes)
+    assert int(want[2 * N + 7]) == 0 and int(want[0]) == 0
+    assert int(want[2 * N + 9]) == 0
+    for blocks in BLOCKS:
+        assert torch.equal(fleet.scatter_lane_replay(
+            L, t, v, N, lanes, run=M, blocks_per_lane=blocks), want)
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+@pytest.mark.parametrize("lanes_b", LANES)
+def test_jump_replay_matches_the_plain_version(lanes_b, blocks):
+    src, dst = _fleet(lanes_b, seed=30 + lanes_b)
+    states = _states(src, dst, count=3)
+    for L in states + [_outside(states[1])]:
+        for lanes in (None, _frozen(lanes_b)):
+            want = cv.pointer_jump_batched_plain(L, N, lanes)
+            got = fleet.jump_lane_replay(L, N, lanes,
+                                         blocks_per_lane=blocks)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+def test_jump_replay_matches_the_reference_lane_by_lane(blocks):
+    lanes_b = 8
+    src, dst = _fleet(lanes_b, seed=9)
+    lanes = _frozen(lanes_b)
+    for L in _states(src, dst, count=3):
+        # a state part-way through a sweep, with chains to jump
+        L = blocked.fused_relax_batched_plain(L, src, dst, N)
+        got = fleet.jump_lane_replay(L, N, lanes, blocks_per_lane=blocks)
+        for b in range(lanes_b):
+            Lb = _lane(L, b).numpy()
+            want = Lb if lanes[b, cv.DONE] else np.asarray(
+                ref_mm.pointer_jump(jnp.asarray(Lb)))
+            np.testing.assert_array_equal(_lane(got, b).numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # the route
 # ---------------------------------------------------------------------------
@@ -208,29 +305,49 @@ def test_slices_cover_the_lane_once():
 RMAT_FLEET = (4096, 1024, 48_736)
 
 
-@pytest.mark.parametrize("kind", ["relax", "converged"])
+KINDS = ["relax", "converged", "scatter", "jump"]
+
+
+def _items(kind, n, m):
+    """What a lane's blocks share: its edges (K1, K6), a run of updates
+    (K2, ``run = m``) or its labels (K7)."""
+    return n if kind == "jump" else m
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_the_rmat_fleet_takes_the_lane_route_with_one_block(kind):
     n, lanes_b, m = RMAT_FLEET
-    assert fleet.fleet_route(n, lanes_b, m, kind, fleet.H100) == \
+    assert fleet.fleet_route(n, lanes_b, _items(kind, n, m), kind,
+                             fleet.H100) == fleet.FleetRoute("lane", 1)
+
+
+def test_the_rmat_fleet_takes_the_lane_routes_of_k2_and_k7():
+    n, lanes_b, m = RMAT_FLEET
+    assert fleet.scatter_route(n, lanes_b, m, fleet.H100) == \
+        fleet.FleetRoute("lane", 1)
+    assert fleet.jump_route(n, lanes_b, fleet.H100) == \
         fleet.FleetRoute("lane", 1)
 
 
-@pytest.mark.parametrize("kind", ["relax", "converged"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_a_small_fleet_splits_its_lanes(kind):
     n, _, m = RMAT_FLEET
-    route = fleet.fleet_route(n, 8, m, kind, fleet.H100)
+    if kind == "jump":  # K7 splits a lane's labels: a lane of 2**15
+        n = 1 << 15
+    items = _items(kind, n, m)
+    route = fleet.fleet_route(n, 8, items, kind, fleet.H100)
     assert route.route == "lane" and route.blocks_per_lane > 1
     # the lanes fill the card's block slots, each slice a few tiles
     shape = fleet.SHAPES[kind]
     assert 8 * route.blocks_per_lane <= shape.min_blocks * fleet.H100.sms
-    assert -(-m // route.blocks_per_lane) >= \
+    assert -(-items // route.blocks_per_lane) >= \
         fleet.MIN_SLICE_TILES * shape.tile
-    # a lane of few edges is not split below the least slice
+    # a lane of few items is not split below the least slice
     assert fleet.fleet_route(n, 8, 100, kind, fleet.H100).blocks_per_lane \
         == 1
 
 
-@pytest.mark.parametrize("kind", ["relax", "converged"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_lanes_above_the_cap_take_the_global_route(kind):
     cap = fleet.lane_cap(kind, fleet.H100)
     assert fleet.lane_smem_bytes(cap, kind) <= fleet.H100.smem_block
@@ -239,8 +356,42 @@ def test_lanes_above_the_cap_take_the_global_route(kind):
         "lane"
     assert fleet.fleet_route(cap + 1, 4, 10_000, kind, fleet.H100) == \
         fleet.GLOBAL
-    # K1 holds two label arrays, K6 one: delaunay_like(14)'s 2**14 fit both
+    # K1 holds two label arrays, the others one: delaunay_like(14)'s 2**14
+    # fit each
     assert cap >= 1 << 14
+
+
+def test_k2_and_k7_above_the_cap_take_the_global_route():
+    for kind, route in (("scatter", lambda n: fleet.scatter_route(
+            n, 4, 10_000, fleet.H100)),
+            ("jump", lambda n: fleet.jump_route(n, 4, fleet.H100))):
+        cap = fleet.lane_cap(kind, fleet.H100)
+        assert route(cap).route == "lane", kind
+        assert route(cap + 1) == fleet.GLOBAL, kind
+
+
+def test_a_stream_of_no_stated_layout_takes_the_global_route():
+    n, lanes_b, _ = RMAT_FLEET
+    assert fleet.scatter_route(n, lanes_b, None, fleet.H100) == fleet.GLOBAL
+    assert fleet.stream_segments(12345, lanes_b, None) == 0
+
+
+def test_a_stream_of_partial_segments_raises():
+    lanes_b = 8
+    src, dst = _fleet(lanes_b, seed=11)
+    L = _states(src, dst, count=1)[1]
+    t, v = contour.mm_update_stream_batched(L, src, dst, N, 2)
+    assert fleet.stream_segments(int(t.shape[0]), lanes_b, M) == 4
+    for tt, vv, run in ((t[:-1], v[:-1], M), (t, v, M + 1), (t, v, 0),
+                        (t, v, -M)):
+        with pytest.raises(ValueError):
+            fleet.stream_segments(int(tt.shape[0]), lanes_b, run)
+        with pytest.raises(ValueError):
+            blocked.scatter_min_batched(L, tt, vv, N, run=run)
+    # without a layout any stream is taken
+    assert torch.equal(
+        blocked.scatter_min_batched(L, t[:-1], v[:-1], N),
+        blocked.scatter_min_batched_plain(L, t[:-1], v[:-1], N))
 
 
 def test_route_errors():
@@ -248,20 +399,38 @@ def test_route_errors():
         fleet.fleet_route(10, 1, 10, "sweep", fleet.H100)
 
 
+def test_the_shapes_follow_the_kernels_order():
+    # csrc/fleet.cu's contour_fleet_shapes reports five ints a kernel in
+    # this order
+    assert list(fleet.SHAPES) == KINDS
+    assert fleet.SHAPES["jump"].ring_bytes == 0
+    assert fleet.SHAPES["scatter"].label_arrays == 1
+
+
 def test_cpu_tensors_run_the_plain_versions_on_no_route():
     lanes_b = 8
     src, dst = _fleet(lanes_b, seed=7)
     L = _states(src, dst)[1]
-    before = (dict(blocked.fused_relax_batched.routes),
-              dict(cv.converged_early_batched.routes))
+    t, v = contour.mm_update_stream_batched(L, src, dst, N, 1)
+    wrappers = (blocked.fused_relax_batched, cv.converged_early_batched,
+                blocked.scatter_min_batched, cv.pointer_jump_batched)
+    before = [dict(w.routes) for w in wrappers]
     blocked.fused_relax_batched(L, src, dst, N)
     cv.converged_early_batched(L, src, dst, N, cv.fleet_state(lanes_b,
                                                               "cpu"))
-    assert (blocked.fused_relax_batched.routes,
-            cv.converged_early_batched.routes) == before
+    assert torch.equal(blocked.scatter_min_batched(L, t, v, N, run=M),
+                       blocked.scatter_min_batched_plain(L, t, v, N))
+    assert torch.equal(cv.pointer_jump_batched(L, N),
+                       cv.pointer_jump_batched_plain(L, N))
+    assert [w.routes for w in wrappers] == before
     with pytest.raises(ValueError, match="CUDA"):
         blocked.fused_relax_batched_on(fleet.FleetRoute("lane"), L, src,
                                        dst, N)
     with pytest.raises(ValueError, match="CUDA"):
         cv.converged_early_batched_on(fleet.GLOBAL, L, src, dst, N,
                                       cv.fleet_state(lanes_b, "cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        blocked.scatter_min_batched_on(fleet.FleetRoute("lane"), L, t, v, N,
+                                       run=M)
+    with pytest.raises(ValueError, match="CUDA"):
+        cv.pointer_jump_batched_on(fleet.GLOBAL, L, N)

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s fleet phase alone on one CUDA GPU: the fleets'
-walls and the fleet's K1 and K6 on each route.
+walls and the fleet's K1, K6, K2 and K7 on each route.
 
 By default it runs ``chip_smoke.phase_batch``: the three fleets through
 ``solve_batch`` (1024 x rmat(12,16), 256 x delaunay_like(14), the ragged
 512; cold and warm walls, the solo loops, the ``torch`` backend, host
-syncs, idle share, launches by route), C-11mm, the check scale, and
-``chip_smoke.fleet_kernels`` on the rmat fleet.  With ``--kernels-only``
-it builds the rmat fleet, solves it once for its fixed point and runs
-``chip_smoke.fleet_kernels`` alone: every fleet entry point
-held against its plain version (K1 fleet and K6 fleet on the lane route
-at its c, at c = 1 and at c = 4, and on the global route), then timed at the
-first sweep (K1), the fixed point and the live fleet after one iteration
-(K6) and K7 after an L2 flush.  The global route is the fleet's kernels
+syncs, idle share, launches by route), C-11mm on the rmat and ragged
+fleets, the check scale, and ``chip_smoke.fleet_kernels`` on the rmat
+fleet.  With ``--kernels-only`` it builds the rmat fleet, solves it once
+for its fixed point and runs ``chip_smoke.fleet_kernels`` alone: every
+fleet entry point held against its plain version (K1, K6, K2 and K7
+fleet on the lane route at its c, at c = 1 and at c = 4, and on the
+global route), then timed at the first sweep (K1, K2's order-1 stream),
+the fixed point and the live fleet after one iteration (K6) and after an
+L2 flush (K7).  The global route is the fleet's kernels
 as they were before the lane route, so the two routes' times, taken in
 one call, compare the designs.  Run from the root of a checkout::
 
