@@ -70,11 +70,12 @@ against scipy's connected components:
   256 x delaunay_like(14), a ragged fleet of 512): every lane against
   scipy, its solo solve and the ``torch`` backend's fleet, walls, host
   syncs and the launches of each route; C-11mm's walls on the rmat and
-  ragged fleets beside the ``torch`` backend's; K1, K6, K2 and K7 fleet
-  ran their lane route (``fleet.fleet_route``: each lane's labels in
-  shared memory) and are held on both routes against their plain
-  versions and timed, with ``labels_unchanged_batched``; then
-  ``algorithm="auto"`` and the autotuner;
+  ragged fleets and C-Syn's on the rmat fleet beside the ``torch``
+  backend's; K1, K6, K2 and K7 fleet ran their lane route
+  (``fleet.fleet_route``: each lane's labels in shared memory) and are
+  held on both routes against their plain versions and timed, with
+  ``labels_unchanged_batched`` (C-Syn's test: live and at the fixed
+  point); then ``algorithm="auto"`` and the autotuner;
 * the float kernels' entry points, ``fused_rmsnorm(x, w)`` and
   ``flash_attention(q, k, v)``, at mistral-nemo-12b's widths (d_model
   5120; 32 heads, 8 KV heads, head dim 128) over 8 x 4096 and 2 x 4096
@@ -372,14 +373,18 @@ def time_ms(fn) -> float:
 def time_each_ms(fn, setup=None) -> float:
     """Mean device time of ``fn()`` alone over ``REPS`` calls, each between
     its own pair of CUDA events, with ``setup()`` (untimed) before each;
-    the card spins before each setup, as in :func:`time_ms`, so that the
-    host has enqueued the call when its first event is reached."""
+    the card spins before each setup, as in :func:`time_ms`, and once
+    for all the calls before the first, so that the host has enqueued
+    each call when its first event is reached (a spin a call alone let a
+    wrapper's host time reach into the window of a call shorter than
+    it)."""
     for _ in range(2):
         if setup is not None:
             setup()
         fn()
     sync()
     pairs = []
+    torch.cuda._sleep(HOLD_CYCLES * REPS)
     for _ in range(REPS):
         torch.cuda._sleep(HOLD_CYCLES)
         if setup is not None:
@@ -2403,16 +2408,25 @@ def witness_edges(L, src, dst, n: int) -> tuple:
     return int(edges.sum()), int(torch.clamp(3 * edges, max=n).sum())
 
 
+def witness_labels(a, b, n: int) -> int:
+    """The labels the no-change test of the fleet must read in this
+    state: each lane's up to its first difference (all of them where it
+    has none)."""
+    diff = (a != b).view(-1, n)
+    return int(torch.where(diff.any(1), diff.int().argmax(1) + 1, n).sum())
+
+
 def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
     """The fleet's entry points against their plain versions on the rmat
     fleet (identity labels, one C-2 iteration, the fixed point, and a
     lane with a label outside it; no lane frozen, and every other lane
     frozen), K1, K6, K2 (the order-1 stream, ``run = m``) and K7 on each
     route (the lane route at :func:`fleet.fleet_route`'s c, at c = 1 and
-    at c = 4, the global route), and their entries of the kernels line:
+    at c = 4, the global route), the no-change test after a jump round
+    and after a C-Syn sweep, and their entries of the kernels line:
     times on each route at the first sweep (K1, K2's order-1 stream), the
-    fixed point and the live fleet after one iteration (K6) and after an
-    L2 flush (K7)."""
+    fixed point and the live fleet after one iteration (K6; the no-change
+    test after C-Syn's first sweep) and after an L2 flush (K7)."""
     lanes_b, m = (int(x) for x in batched.src.shape)
     n = batched.n_vertices
     src, dst = batched.src, batched.dst
@@ -2471,6 +2485,7 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                               want) for r in variants("jump")))
             del want
             jumped = cv.pointer_jump_batched_plain(L, n)
+            swept = blocked.fused_relax_batched_plain(L, src, dst, n)
             early = [cv.converged_early_batched] + [
                 lambda *a, r=r: cv.converged_early_batched_on(r, *a)
                 for r in variants("converged")]
@@ -2479,7 +2494,10 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                      cv.converged_early_batched_plain, (L, src, dst, n)),
                     ("labels_unchanged_batched",
                      [cv.labels_unchanged_batched],
-                     cv.labels_unchanged_batched_plain, (jumped, L, n))):
+                     cv.labels_unchanged_batched_plain, (jumped, L, n)),
+                    ("labels_unchanged_batched",
+                     [cv.labels_unchanged_batched],
+                     cv.labels_unchanged_batched_plain, (swept, L, n))):
                 b = cv.fleet_state(lanes_b, DEVICE)
                 if lanes is not None:
                     b.lanes.copy_(lanes)
@@ -2491,7 +2509,7 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                     fn(*args, a)
                     err[key] = max(err[key], max_abs_err(a.lanes, b.lanes),
                                    max_abs_err(a.fleet, b.fleet))
-            del jumped
+            del jumped, swept
             checks += 1
     sync()
     if any(err.values()):
@@ -2553,6 +2571,13 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                    "ms": jump_ms(fleet.GLOBAL)}}
     live_edges, live_labels = witness_edges(L1, src, dst, n)
     Lf_copy = Lf.clone()
+    # C-Syn's first iteration: one order-2 sweep from identity, no jump
+    L_syn = blocked.fused_relax_batched_plain(L0, src, dst, n)
+    syn_labels = witness_labels(L_syn, L0, n)
+
+    def unchanged_ms(a, b):
+        return time_each_ms(lambda: cv.labels_unchanged_batched(
+            a, b, n, state), setup=fresh)
     shape = {"B": lanes_b, "n": n, "m": m, "labels": lanes_b * n}
     entries = {
         "fused_relax_batched": {
@@ -2585,8 +2610,14 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
             **bound(8 * lanes_b * m + 4 * lanes_b * n, 3 * lanes_b * m)},
         "labels_unchanged_batched": {
             "source": CONVERGED_SOURCE, "state": "fixed point, every lane",
-            "ms": time_each_ms(lambda: cv.labels_unchanged_batched(
-                Lf, Lf_copy, n, state), setup=fresh),
+            "ms": unchanged_ms(Lf, Lf_copy),
+            "live": {"state": "one C-Syn iteration from identity",
+                     "ms": unchanged_ms(L_syn, L0),
+                     "plain_ms": time_each_ms(
+                         lambda: cv.labels_unchanged_batched_plain(
+                             L_syn, L0, n, state), setup=fresh),
+                     "labels_to_first_witness": syn_labels,
+                     **bound(8 * syn_labels, syn_labels)},
             "plain_ms": time_each_ms(
                 lambda: cv.labels_unchanged_batched_plain(
                     Lf, Lf_copy, n, state), setup=fresh),
@@ -2610,21 +2641,30 @@ def fleet_kernels(batched: Graph, fixed: torch.Tensor) -> dict:
                           "converged_early_batched": early_routes,
                           "scatter_min_batched": scatter_routes,
                           "pointer_jump_batched": jump_routes},
-          "live": entries["converged_early_batched"]["live"]})
+          "live": {k: entries[k]["live"] for k in (
+              "converged_early_batched", "labels_unchanged_batched")}})
     return {name: {"name": name, "route": "cuda",
                    "replaces": REPLACES[name], "max_abs_err": err[name],
                    "shape": shape, **entry}
             for name, entry in entries.items()}
 
 
-def drive_c11mm(name: str, batched: Graph, sizes) -> dict:
-    """C-11mm over a fleet (its two order-1 sweeps run K2 fleet, its
-    jumps K7 fleet): both on the lane route alone, the result bit for bit
-    the ``torch`` backend's; cold and warm walls (host clock, warm = mean
-    of ``REPS``) beside the ``torch`` backend's fleet (warm = mean of
-    ``PLAIN_FLEET_REPS``)."""
+# the entry points a fleet's variant must launch (drive_variant)
+VARIANT_LAUNCHES = {
+    # its two order-1 sweeps run K2 fleet, its jumps K7 fleet
+    "C-11mm": ("scatter_min_batched", "pointer_jump_batched"),
+    # an order-2 sweep and the no-change test an iteration, no jump
+    "C-Syn": ("fused_relax_batched", "labels_unchanged_batched")}
+
+
+def drive_variant(name: str, batched: Graph, sizes, variant: str) -> dict:
+    """A fleet's ``variant`` (C-11mm or C-Syn): the entry points of
+    :data:`VARIANT_LAUNCHES` launched, each routed one on the lane route
+    alone, the result bit for bit the ``torch`` backend's; cold and warm
+    walls (host clock, warm = mean of ``REPS``) beside the ``torch``
+    backend's fleet (warm = mean of ``PLAIN_FLEET_REPS``)."""
     def run(**options):
-        return solve_batch(batched, batch_sizes=sizes, variant="C-11mm",
+        return solve_batch(batched, batch_sizes=sizes, variant=variant,
                            **options)
 
     sync()
@@ -2634,21 +2674,21 @@ def drive_c11mm(name: str, batched: Graph, sizes) -> dict:
     sync()
     cold_ms = (time.perf_counter() - t0) * 1e3
     launches, routes = launch_counts(), route_counts()
-    for k in ("scatter_min_batched", "pointer_jump_batched"):
+    for k in VARIANT_LAUNCHES[variant]:
         if launches[k] <= 0:
-            raise AssertionError(f"{name}: the fleet's C-11mm did not "
+            raise AssertionError(f"{name}: the fleet's {variant} did not "
                                  f"launch {k}")
-    lane_alone(f"{name} C-11mm", launches, routes)
+    lane_alone(f"{name} {variant}", launches, routes)
     warm_ms = host_ms(run)
     t0 = time.perf_counter()
     plain = run(backend="torch")
     sync()
     plain_cold_ms = (time.perf_counter() - t0) * 1e3
-    same_result(res, plain, f"{name}: the fleet's C-11mm against the "
+    same_result(res, plain, f"{name}: the fleet's {variant} against the "
                             "torch backend's")
     plain_warm_ms = torch_backend_warm_ms(run)
     its = res.iterations.cpu()
-    row = {"phase": "batch_path", "fleet": name, "variant": "C-11mm",
+    row = {"phase": "batch_path", "fleet": name, "variant": variant,
            "batched_cold_ms": cold_ms, "batched_warm_ms": warm_ms,
            "torch_backend_cold_ms": plain_cold_ms,
            "torch_backend_warm_ms": plain_warm_ms,
@@ -2666,14 +2706,18 @@ def phase_batch() -> tuple:
     rows = []
     row, batched, sizes = drive_fleet("rmat")
     rows.append(row)
-    # the order-1 sweeps: C-11mm's warm-up runs K2's fleet entry point
-    rows.append(drive_c11mm(row["fleet"], batched, sizes))
+    # the order-1 sweeps: C-11mm's warm-up runs K2's fleet entry point;
+    # C-Syn runs the no-change test
+    rows.append(drive_variant(row["fleet"], batched, sizes, "C-11mm"))
+    rows.append(drive_variant(row["fleet"], batched, sizes, "C-Syn"))
     fixed = solve_batch(batched).labels
     kernels = fleet_kernels(batched, fixed)
     # launches a solve of the fleet's path: dense C-2 on the rmat fleet,
-    # and C-11mm for K2's order-1 sweeps
+    # C-11mm for K2's order-1 sweeps and C-Syn for the no-change test
+    by_key = {"scatter_min_batched": rows[1],
+              "labels_unchanged_batched": rows[2]}
     for key, entry in kernels.items():
-        source = rows[1] if key == "scatter_min_batched" else rows[0]
+        source = by_key.get(key, rows[0])
         entry["launches_per_solve"] = {
             "path": f"{source['fleet']}, {source.get('variant', 'C-2')}",
             "launches": source["launches"][key],
@@ -2683,7 +2727,8 @@ def phase_batch() -> tuple:
         row, batched, sizes = drive_fleet(kind)
         rows.append(row)
         if kind == "ragged":
-            rows.append(drive_c11mm(row["fleet"], batched, sizes))
+            rows.append(drive_variant(row["fleet"], batched, sizes,
+                                      "C-11mm"))
         del batched
     rows.append(fleet_check_scale())
     return rows, kernels

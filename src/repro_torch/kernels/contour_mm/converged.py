@@ -453,7 +453,10 @@ def labels_unchanged_batched_plain(a: torch.Tensor, b: torch.Tensor,
 def labels_unchanged_batched(a: torch.Tensor, b: torch.Tensor, n: int,
                              state: FleetState) -> None:
     """``all(a == b)`` of each live lane of a fleet over its own ``n``
-    labels, and each lane's step, as :func:`converged_early_batched`."""
+    labels, and each lane's step, as :func:`converged_early_batched`.
+    One launch of ``unchanged_lanes_kernel`` (tiles of one lane, 16-byte
+    loads where ``a`` and ``b`` share their 16-byte phase; its schedule
+    is :func:`unchanged_batched_replay`)."""
     if a.shape != b.shape:
         raise ValueError(f"a/b shape mismatch: {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
@@ -473,6 +476,77 @@ def labels_unchanged_batched(a: torch.Tensor, b: torch.Tensor, n: int,
 
 
 labels_unchanged_batched.launches = 0
+
+# labels a tile of unchanged_lanes_kernel (csrc/converged.cu: kThreads *
+# kUnchangedVecs * 4)
+UNCHANGED_TILE = 1024
+
+
+def unchanged_layout(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int]:
+    """``(width, phase)`` as the launcher picks them: items of 4 labels
+    (16-byte loads) where ``a`` and ``b`` lie at one 16-byte phase, with
+    ``phase`` the 4-byte slot of ``a``'s first label; else items of one
+    label and phase 0."""
+    pa, pb = a.data_ptr(), b.data_ptr()
+    if (pa - pb) % 16 == 0:
+        return 4, (pa // 4) % 4
+    return 1, 0
+
+
+def unchanged_lane_parts(n: int, lane: int, width: int,
+                         phase: int) -> Tuple[int, int]:
+    """``(head, items)`` of a lane: the labels before its first 16-byte
+    boundary (compared as scalars, as are the ``n - head - items *
+    width`` past its last whole item) and its whole items."""
+    head = 0 if width == 1 else min((4 - (phase + lane * n) % 4) % 4, n)
+    return head, (n - head) // width
+
+
+def unchanged_batched_replay(a: torch.Tensor, b: torch.Tensor, n: int,
+                             state: FleetState) -> torch.Tensor:
+    """``unchanged_lanes_kernel``'s schedule on the fleet's words
+    ``state``, in place: tile ``k`` is slice ``k // B`` of lane ``k % B``
+    (a slice is :data:`UNCHANGED_TILE` labels, ``UNCHANGED_TILE //
+    width`` items); a tile whose lane is done or witnessed reads nothing;
+    else it compares its items, and the lane's first slice also its head
+    and tail labels, and a difference sets the lane's ``bad``.  Then the
+    fleet's step (the last block's pass).  Tiles run in order here, so a
+    lane witnessed by its first slice reads no other.  Returns the labels
+    each tile compared, ``[B, tiles a lane]``, each label of a live lane
+    counted where it was read."""
+    lanes_w, fleet_w = state
+    lanes_b = int(lanes_w.shape[0])
+    per = -(-n // UNCHANGED_TILE)
+    reads = torch.zeros((lanes_b, per), dtype=torch.int64)
+    if int(fleet_w[DONE]):
+        return reads
+    width, phase = unchanged_layout(a, b)
+    step = UNCHANGED_TILE // width
+    for k in range(lanes_b * per):
+        part, lane = divmod(k, lanes_b)
+        words = lanes_w[lane]
+        if int(words[DONE]) or int(words[BAD]):
+            continue
+        first = lane * n
+        head, items = unchanged_lane_parts(n, lane, width, phase)
+        lo, hi = min(items, part * step), min(items, (part + 1) * step)
+        ids = [torch.arange(first + head + lo * width,
+                            first + head + hi * width)]
+        if part == 0:
+            ids += [torch.arange(first, first + head),
+                    torch.arange(first + head + items * width, first + n)]
+        ids = torch.cat(ids).to(a.device)
+        reads[lane, part] = int(ids.shape[0])
+        if bool((a[ids] != b[ids]).any()):
+            words[BAD] = 1
+    live = lanes_w[:, DONE] == 0
+    lanes_w[live, IT] += 1
+    lanes_w[live, DONE] = (lanes_w[live, BAD] == 0).to(lanes_w.dtype)
+    lanes_w[:, BAD] = 0
+    fleet_w[IT] += int(bool(live.any()))
+    fleet_w[DONE] = int(bool((lanes_w[:, DONE] != 0).all()))
+    fleet_w[TICKET] = 0
+    return reads
 
 
 def pointer_jump_batched_plain(L: torch.Tensor, n: int,

@@ -111,6 +111,10 @@ constexpr int kPairs = 2;    // 16-byte vectors a lane a step of the
                              // no-change test (four times as many
                              // 4-byte items where unaligned)
 constexpr int kJumps = 4;    // vertices a lane of the jump
+// the fleet's no-change test: 16-byte vectors of each array a thread a
+// tile, and the labels a tile (tools/unchanged_variants.py)
+constexpr int kUnchangedVecs = 1;
+constexpr int kUnchangedTile = kThreads * kUnchangedVecs * 4;
 constexpr int kVecThreads = 1024;  // a block of the aligned predicate
 constexpr int kVecBlocksPerSM = 2;
 constexpr unsigned kFull = 0xffffffffu;
@@ -422,11 +426,51 @@ jump_kernel(const int* __restrict__ L, int* __restrict__ out, int64_t n,
 // the fleet done returns at once.  The jump copies a lane that is done:
 // a lane freezes at the iteration its test passes, as the reference's
 // vmapped while_loop freezes it, and no later sweep or jump round of
-// another lane moves it.  Simple kernels: one item a thread of a
-// persistent grid, no early exit.  converged_batched_kernel is K6 fleet's
-// "global" route, for lanes whose labels do not fit a block's shared
-// memory; the others take the lane route of fleet.cu
-// (kernels/contour_mm/fleet.py: fleet_route).
+// another lane moves it.  converged_batched_kernel and
+// jump_batched_kernel are simple kernels, one item a thread of a
+// persistent grid, no early exit: K6 fleet's and K7 fleet's "global"
+// route, for lanes whose labels do not fit a block's shared memory; the
+// others take the lane route of fleet.cu (kernels/contour_mm/fleet.py:
+// fleet_route).
+//
+// unchanged_lanes_kernel, the fleet's no-change test (C-Syn's, Alg. 1
+// line 10), replaces no Pallas kernel: the reference computes
+// jnp.all(L_new == s.L) (repro/connectivity/contour.py:238) in XLA under
+// its vmap (repro/connectivity/batch.py:198).  For each live lane b it
+// asks all(a[b * n + v] == b[b * n + v]) over v < n, and then takes each
+// lane's step through fleet_step.  Its bound on an H100 is 8 * B * n
+// bytes at the fixed point (each array read once; 1024 x rmat(12,16):
+// 33.5 MB, 0.0100 ms at 3.35 TB/s) and, live, the bytes up to each
+// lane's first witness.  It holds no lane in shared memory, so one kernel
+// takes every n.  The design:
+//   * tiles of one lane: a tile is a slice of kUnchangedTile labels of
+//     one lane, tile k = (slice k / B, lane k % B) in slice-major order
+//     (one 32-bit division a tile, none a label: B * n < 2^31, so every
+//     offset is 32-bit), walked by a persistent grid of kBlocksPerSM
+//     blocks an SM, so a live fleet's first wave takes the lanes' first
+//     slices and later tiles find their lane witnessed;
+//   * thread 0 reads the lane's done and bad words once a tile, and the
+//     block skips the tile (no label read) where either is set;
+//   * 16-byte streaming loads (__ldcs), one vector of each array a
+//     thread a tile, where a and b share their 16-byte phase; lane b
+//     starts at b * n ints, so each lane's head up to its first 16-byte
+//     boundary and its tail past its last whole vector (at most 3 labels
+//     each) are compared as scalars by the lane's first tile.  Where the
+//     phases differ (a view one int off), items are single ints, four a
+//     thread;
+//   * one witness a block: the block votes (__syncthreads_or), and
+//     thread 0 makes the one store to the lane's bad word, with one
+//     __threadfence a block, before its ticket, not one a witness;
+//   * fleet_step, and the return at once on the fleet's done word, as
+//     for the other fleet tests.
+// The shape was timed against others by tools/unchanged_variants.py
+// (PERF.md, NVIDIA H100 80GB HBM3): tiles of 2048 labels (two vectors a
+// thread) took 1.5-1.6x as long live on the rmat fleet and as long at
+// the fixed point; four vectors a thread spilled and took 1.4x; 128-,
+// 512- and 1024-thread blocks, or 4 blocks an SM, were no faster on all
+// three fleets; reading the next tile's words during a tile took 1.3x
+// live and gained nothing at the fixed point.  The last block's pass over
+// the lanes' words costs 1-2 us of the rmat fleet's 12-20 (B = 1024).
 
 __device__ __forceinline__ bool lane_live(const int* lanes, int64_t lane) {
   // done through the read-only path (only the last block writes it, at
@@ -493,18 +537,57 @@ converged_batched_kernel(const int* __restrict__ L,
   fleet_step(lanes, B, fleet);
 }
 
-__global__ void __launch_bounds__(kThreads)
-unchanged_batched_kernel(const int* __restrict__ a,
-                         const int* __restrict__ b, int64_t B, int64_t n,
-                         int* lanes, int* fleet) {
+// T is int4 (a and b share their 16-byte phase: items are vectors of 4
+// labels after each lane's scalar head) or int.  per = the tiles a lane,
+// phase = a's first label's index mod 4 (its 4-byte slot in 16 bytes).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+unchanged_lanes_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                       uint32_t B, uint32_t n, uint32_t per, uint32_t phase,
+                       int* lanes, int* fleet) {
   if (__ldg(fleet + kDone)) return;
-  const int64_t total = B * n;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * kThreads) {
-    const int64_t lane = i / n;
-    if (lane_live(lanes, lane) && __ldcs(a + i) != __ldcs(b + i))
-      lane_witness(lanes, lane);
+  constexpr uint32_t W = sizeof(T) / sizeof(int);
+  constexpr int E = kUnchangedTile / (kThreads * W);  // items a thread
+  const uint32_t tiles = B * per, lid = threadIdx.x & 31;
+  bool stored = false;  // thread 0's
+  for (uint32_t k = blockIdx.x; k < tiles; k += gridDim.x) {
+    const uint32_t slice = k / B, lane = k - slice * B;
+    int* words = lanes + 4 * (size_t)lane;
+    if (__syncthreads_or(threadIdx.x == 0 &&
+                         (__ldg(words + kDone) || vload(words + kBad))))
+      continue;
+    const uint32_t first = lane * n;
+    const uint32_t head =
+        W == 1 ? 0u : min((4u - ((phase + first) & 3u)) & 3u, n);
+    const uint32_t items = (n - head) / W;
+    const T* va = reinterpret_cast<const T*>(a + first + head);
+    const T* vb = reinterpret_cast<const T*>(b + first + head);
+    const uint32_t i0 = slice * (kThreads * E) +
+                        (threadIdx.x / 32) * (32 * E) + lid;
+    T x[E], y[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const bool ok = i0 + 32 * i < items;
+      x[i] = ok ? __ldcs(va + i0 + 32 * i) : T{};
+      y[i] = ok ? __ldcs(vb + i0 + 32 * i) : T{};
+    }
+    bool witness = false;
+    // the lane's head (threads 0-3) and tail (threads 4-7), with its
+    // first tile
+    if (W > 1 && slice == 0 && threadIdx.x < 8) {
+      const uint32_t v = threadIdx.x < 4 ? threadIdx.x
+                                         : head + items * W + threadIdx.x - 4;
+      if (v < (threadIdx.x < 4 ? head : n))
+        witness = __ldcs(a + first + v) != __ldcs(b + first + v);
+    }
+#pragma unroll
+    for (int i = 0; i < E; ++i) witness |= differ(x[i], y[i]);
+    if (__syncthreads_or(witness) && threadIdx.x == 0) {
+      vstore(words + kBad, 1);
+      stored = true;
+    }
   }
+  if (stored) __threadfence();  // the stores of bad before the ticket
   fleet_step(lanes, B, fleet);
 }
 
@@ -621,14 +704,29 @@ int contour_converged_early_batched(const void* L, const void* src,
   return (int)cudaGetLastError();
 }
 
-// The fleet's no-change test over two [B * n] arrays.
+// The fleet's no-change test over two [B * n] arrays (B * n < 2^31).
 int contour_labels_unchanged_batched(const void* a, const void* b,
                                      int64_t B, int64_t n, void* lanes,
                                      void* fleet, void* stream) {
-  if (B <= 0 || n < 0) return (int)cudaErrorInvalidValue;
-  unchanged_batched_kernel<<<(unsigned)test_blocks(B * n, 1), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const int*)a, (const int*)b, B, n, (int*)lanes, (int*)fleet);
+  if (B <= 0 || n < 0 || B * n >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a),
+                  pb = reinterpret_cast<uintptr_t>(b);
+  const uint32_t per = (uint32_t)((n + kUnchangedTile - 1) / kUnchangedTile);
+  const int64_t most = (int64_t)sm_count() * kBlocksPerSM;
+  const int64_t tiles = B * per;
+  const unsigned blocks =
+      (unsigned)(tiles < 1 ? 1 : (tiles < most ? tiles : most));
+  if (((pa ^ pb) & 15) == 0)
+    unchanged_lanes_kernel<int4><<<blocks, kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+        (const int*)a, (const int*)b, (uint32_t)B, (uint32_t)n, per,
+        (uint32_t)((pa >> 2) & 3), (int*)lanes, (int*)fleet);
+  else
+    unchanged_lanes_kernel<int><<<blocks, kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+        (const int*)a, (const int*)b, (uint32_t)B, (uint32_t)n, per, 0u,
+        (int*)lanes, (int*)fleet);
   return (int)cudaGetLastError();
 }
 

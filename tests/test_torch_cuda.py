@@ -1503,3 +1503,105 @@ def test_fleet_order_h_sweeps_take_the_lane_routes_on_the_card(cuda,
         assert torch.equal(getattr(card, key), getattr(plain, key)), key
     for fn in (blocked.scatter_min_batched, cv.pointer_jump_batched):
         assert fn.routes["lane"] > 0 and fn.routes["global"] == 0, fn
+
+
+# ---------------------------------------------------------------------------
+# K6 fleet's no-change test (unchanged_lanes_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _hold_unchanged(a, b, n, words):
+    """``labels_unchanged_batched`` launches once and leaves the lane and
+    fleet words of its plain version, bit for bit."""
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    lanes_b = int(words.shape[0])
+    got = cv.fleet_state(lanes_b, a.device)
+    want = cv.fleet_state(lanes_b, a.device)
+    got.lanes.copy_(words)
+    want.lanes.copy_(words)
+    before = cv.labels_unchanged_batched.launches
+    cv.labels_unchanged_batched(a, b, n, got)
+    cv.labels_unchanged_batched_plain(a, b, n, want)
+    assert cv.labels_unchanged_batched.launches == before + 1
+    assert torch.equal(got.lanes, want.lanes)
+    assert torch.equal(got.fleet, want.fleet)
+
+
+def _unchanged_cases(a, b, n, lanes_b):
+    """``(b', lane words)``: the fixed point (a copy), every lane differing
+    at its first label, every lane at its last, a few lanes at random
+    labels with every third lane done, and every lane and the fleet done
+    (the loop's last state: the kernel returns at once)."""
+    zero = torch.zeros((lanes_b, 4), dtype=torch.int32, device=a.device)
+    out = [(b, zero)]
+    if n == 0:
+        return out
+    lanes = torch.arange(lanes_b, device=a.device)
+    for v in (0, n - 1):
+        x = b.clone()
+        x[lanes * n + v] += 1
+        out.append((x, zero))
+    x = b.clone()
+    rng = np.random.default_rng(n)
+    for lane in range(0, lanes_b, 2):
+        x[lane * n + int(rng.integers(0, n))] -= 1
+    words = zero.clone()
+    words[1::3, 0] = 1
+    out.append((x, words))
+    return out
+
+
+def _layouts(a, b):
+    """``(a, b)`` aligned, both one int past a 16-byte boundary, ``b``
+    alone one int past it, and ``a`` as a strided (non-contiguous)
+    view."""
+    strided = torch.empty(2 * a.numel(), dtype=a.dtype, device=a.device)
+    strided[::2] = a
+    return ((a, b), (_unaligned(a), _unaligned(b)), (a, _unaligned(b)),
+            (strided[::2], b))
+
+
+@pytest.mark.parametrize("lanes_b", [1, 3, 64])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 4097])
+def test_fleet_unchanged_matches_plain_on_the_card(cuda, n, lanes_b):
+    rng = np.random.default_rng(lanes_b * 10 + n)
+    a = torch.tensor(rng.integers(0, max(lanes_b * n, 1), lanes_b * n),
+                     dtype=torch.int32, device=cuda)
+    for x, words in _unchanged_cases(a, a.clone(), n, lanes_b):
+        for pa, pb in _layouts(a, x):
+            _hold_unchanged(pa, pb, n, words)
+            if n and lanes_b > 1:
+                done = torch.ones_like(words)
+                done[:, 1:] = 0
+                _hold_unchanged(pa, pb, n, done)
+
+
+def test_fleet_unchanged_at_the_fleets_shapes_on_the_card(cuda):
+    """At the rmat fleet's shape (1024 lanes of 4096 labels; random edges)
+    and on a ragged fleet (64 lanes of 2^8 to 2^14 vertices padded to
+    2^14): live (one C-Syn sweep from identity against identity) and at
+    the fixed point (a copy), in every layout and lane state."""
+    from repro_torch.connectivity.batch import stack_graphs
+
+    src, dst, (L0, _), lanes = _random_fleet(cuda, 1024, 4096, 64, 3)
+    L1 = blocked.fused_relax_batched_plain(L0, src, dst, 4096)
+    gs = [gen.rmat(8 + s % 7, edge_factor=8, seed=s, device=cuda)
+          for s in range(64)]
+    st = stack_graphs(gs)
+    n = st.n_vertices
+    assert n == 1 << 14
+    off = blocked.lane_offsets(64, n, cuda)
+    R0 = (torch.arange(n, dtype=torch.int32, device=cuda)
+          .expand(64, n) + off).reshape(-1).contiguous()
+    R1 = blocked.fused_relax_batched_plain(R0, st.src, st.dst, n)
+    for (live, start), n_, lanes_b in (((L1, L0), 4096, 1024),
+                                       ((R1, R0), n, 64)):
+        zero = torch.zeros((lanes_b, 4), dtype=torch.int32, device=cuda)
+        for words in (zero, lanes if lanes_b == 1024 else zero):
+            for pa, pb in _layouts(live, start):
+                _hold_unchanged(pa, pb, n_, words)
+            for pa, pb in _layouts(live, live.clone()):
+                _hold_unchanged(pa, pb, n_, words)
+        for x, words in _unchanged_cases(live, live.clone(), n_, lanes_b):
+            _hold_unchanged(live, x, n_, words)

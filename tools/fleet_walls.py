@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the fleets' walls through ``solve_batch`` (dense C-2 and C-11mm)
-of one or more checkouts on one CUDA GPU, in turns.
+"""Time the fleets' walls through ``solve_batch`` (dense C-2, C-11mm and
+C-Syn) and the fleet's no-change test of one or more checkouts on one
+CUDA GPU, in turns.
 
 Each checkout named by ``--root`` runs in a process of its own (its own
 ``repro_torch`` and ``chip_smoke``, its kernels built from its own
@@ -14,7 +15,15 @@ mean of ``chip_smoke.REPS`` solves), the card's busy time of one solve
 (``torch.profiler``: the union of its device events) and, from another
 profiled solve, each kernel's device time summed over its launches, the
 iterations and,
-where the checkout has them, the launches of each route.  The fleets are
+where the checkout has them, the launches of each route.  On each fleet
+it also times the no-change test (``converged.labels_unchanged_batched``,
+CUDA events, mean of ``chip_smoke.REPS`` calls, fresh state words before
+each, with this file's own timer so that every checkout is timed alike)
+live (one C-Syn iteration from identity against identity) and at
+the fixed point (against a copy), its plain version, the solo
+``labels_unchanged`` over the same flat labels in both states, and the
+wrapper's host time a call (host clock, no synchronize, least and mean
+of ``HOST_ROUNDS`` rounds of ``HOST_CALLS`` calls).  The fleets are
 made anew at each invocation, by its first process, and kept under
 ``build/fleet_walls/`` for its later ones.  Run from the root of a
 checkout::
@@ -41,7 +50,8 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "chiprun_out" / "fleet_walls.jsonl"
 CACHE = ROOT / "build" / "fleet_walls"
 KINDS = ("rmat", "delaunay", "ragged")
-VARIANTS = ("C-2", "C-11mm")
+VARIANTS = ("C-2", "C-11mm", "C-Syn")
+HOST_ROUNDS, HOST_CALLS = 5, 100
 
 
 def one(root: Path) -> dict:
@@ -87,9 +97,81 @@ def one(root: Path) -> dict:
                             "kernels_ms": kernels_ms(run),
                             "iterations_max": int(res.iterations.max()),
                             "launches": launches, "routes": routes}
+        out["tests"] = tests_ms(cs, batched)
         row["fleets"][cs.fleet_name(kind)] = out
         del batched
     return row
+
+
+def tests_ms(cs, batched) -> dict:
+    """The fleet's no-change test, its plain version and the solo test
+    over the same labels, live and at the fixed point (module
+    docstring)."""
+    cv, blocked = cs.cv, cs.blocked
+    lanes_b = int(batched.src.shape[0])
+    n = batched.n_vertices
+    off = blocked.lane_offsets(lanes_b, n, cs.DEVICE)
+    L0 = (cs.torch.arange(n, dtype=cs.torch.int32, device=cs.DEVICE)
+          .expand(lanes_b, n) + off).reshape(-1).contiguous()
+    # C-Syn's first iteration: one order-2 sweep, no jump
+    L1 = blocked.fused_relax_batched_plain(L0, batched.src, batched.dst, n)
+    Lf = (cs.solve_batch(batched).labels + off).reshape(-1).contiguous()
+    Lf_copy = Lf.clone()
+    state = cv.fleet_state(lanes_b, cs.DEVICE)
+    solo = cv.loop_state(cs.DEVICE)
+
+    def fresh():
+        state.lanes.zero_()
+        state.fleet.zero_()
+
+    out = {"B": lanes_b, "n": n, "labels": lanes_b * n}
+    for key, (a, b) in (("live", (L1, L0)), ("fixed", (Lf, Lf_copy))):
+        out[key] = {
+            "ms": time_each_ms(cs, lambda: cv.labels_unchanged_batched(
+                a, b, n, state), setup=fresh),
+            "plain_ms": time_each_ms(
+                cs, lambda: cv.labels_unchanged_batched_plain(a, b, n, state),
+                setup=fresh),
+            "solo_ms": time_each_ms(cs, lambda: cv.labels_unchanged(
+                a, b, state=solo), setup=solo.zero_)}
+    per_call = []
+    for _ in range(HOST_ROUNDS):
+        cs.sync()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            cv.labels_unchanged_batched(Lf, Lf_copy, n, state)
+        per_call.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        cs.sync()
+    out["host_us_a_call"] = {"min": min(per_call),
+                             "mean": sum(per_call) / len(per_call)}
+    return out
+
+
+def time_each_ms(cs, fn, setup) -> float:
+    """Mean device time of ``fn()`` over ``chip_smoke.REPS`` calls, each
+    between its own CUDA events with ``setup()`` before it, the card held
+    busy once for all the calls and before each (this checkout's
+    ``chip_smoke.time_each_ms``, kept here so that every checkout is
+    timed alike)."""
+    import torch
+
+    for _ in range(2):
+        setup()
+        fn()
+    cs.sync()
+    pairs = []
+    torch.cuda._sleep(cs.HOLD_CYCLES * cs.REPS)
+    for _ in range(cs.REPS):
+        torch.cuda._sleep(cs.HOLD_CYCLES)
+        setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    cs.sync()
+    return sum(s.elapsed_time(e) for s, e in pairs) / cs.REPS
 
 
 def kernels_ms(fn) -> dict:
@@ -116,15 +198,23 @@ def kernels_ms(fn) -> dict:
 
 def spread(rows: list) -> dict:
     """Each checkout's least, mean and greatest warm wall and busy time,
-    by fleet and variant, over its processes."""
+    by fleet and variant, and the no-change test's times, over its
+    processes."""
     seen: dict = {}
     for row in rows:
         for fleet_name, out in row["fleets"].items():
             for variant, one_row in out.items():
-                for key in ("warm_ms", "busy_ms"):
-                    seen.setdefault(row["root"], {}).setdefault(
-                        fleet_name, {}).setdefault(variant, {}).setdefault(
-                        key, []).append(one_row[key])
+                if variant == "tests":
+                    one_row = {f"{state}_{key}": one_row[state][key]
+                               for state in ("live", "fixed")
+                               for key in ("ms", "solo_ms")}
+                    one_row["host_us"] = out["tests"]["host_us_a_call"][
+                        "min"]
+                for key, x in one_row.items():
+                    if key in ("warm_ms", "busy_ms") or variant == "tests":
+                        seen.setdefault(row["root"], {}).setdefault(
+                            fleet_name, {}).setdefault(
+                            variant, {}).setdefault(key, []).append(x)
     for by_fleet in seen.values():
         for by_variant in by_fleet.values():
             for keys in by_variant.values():
