@@ -66,6 +66,20 @@ against scipy's connected components:
   of round 0 and one at a round boundary, and ``stream_with_recovery``
   over rmat(20,16)'s edges with two faults, each against its clean run
   bit for bit;
+* the mesh phase, after the recovery path (``connectivity.distributed``
+  over ``torch.distributed``): ``solve(g, mesh=mesh)`` on a 1-rank NCCL
+  mesh in this process on the main path's graphs, dense, at
+  ``local_rounds`` 1 and 3, bit for bit the ``torch`` backend's mesh
+  solve and scipy's labels, with the warm wall beside dense C-2's, host
+  syncs and the card's idle share (``mesh_path``), and the stream's
+  mesh path over 8 batches of 2**20 of rmat's edges, its state after
+  every batch against the ``torch`` backend's (``mesh_stream``); then 4
+  gloo ranks spawned on the card (NCCL takes one rank a card; gloo
+  stages through the host) solving the async path's graphs, dense and
+  on the frontier, from host arrays saved once and mapped by every rank
+  (``mesh_ranks``), and the elastic shrink 4 -> 3 -> 2
+  (``mesh_elastic``); the ranks' launches are summed into the kernels
+  line;
 * fleets of small graphs through ``solve_batch`` (1024 x rmat(12,16),
   256 x delaunay_like(14), a ragged fleet of 512): every lane against
   scipy, its solo solve and the ``torch`` backend's fleet, walls, host
@@ -104,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import os
 import subprocess
@@ -112,6 +127,7 @@ import tempfile
 import time
 import traceback
 import warnings
+import zlib
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -121,6 +137,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
 
 from repro_torch import (Graph, StreamingConnectivity, solve,  # noqa: E402
                          solve_batch, stack_graphs)
@@ -129,7 +147,8 @@ from repro_torch.connectivity import SAMPLING_STRATEGIES, minmap  # noqa: E402
 from repro_torch.connectivity import fastsv  # noqa: E402
 from repro_torch.connectivity import oocore  # noqa: E402
 from repro_torch.connectivity import (  # noqa: E402
-    OutOfCoreContraction, oocore_with_recovery, stream_with_recovery)
+    OutOfCoreContraction, oocore_with_recovery,
+    resilient_distributed_contour, stream_with_recovery)
 from repro_torch.connectivity import contour  # noqa: E402
 from repro_torch.connectivity import frontier as fr  # noqa: E402
 from repro_torch.connectivity import planner  # noqa: E402
@@ -147,7 +166,8 @@ from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
     fused_rmsnorm, rmsnorm_ref)
 from repro_torch.kernels.fused_rmsnorm import \
     kernel as rms_kernel  # noqa: E402
-from repro_torch.runtime import FaultInjector, SimulatedFault  # noqa: E402
+from repro_torch.runtime import (FaultInjector, Mesh,  # noqa: E402
+                                 ShardLossFault, SimulatedFault)
 from repro_torch.serving import ConnectivityEngine  # noqa: E402
 from repro_torch.serving.simulate import (  # noqa: E402
     WorkloadSpec, make_ingest_plan, run_simulation)
@@ -240,6 +260,24 @@ BATCH_SEED = 21
 # the time the fleet and auto phases are meant to take together at most
 # (reported, as the other budgets)
 BATCH_AUTO_BUDGET_S = 90.0
+# the mesh phase (connectivity.distributed): a 1-rank NCCL mesh in this
+# process on the main path's graphs and the stream's mesh path over
+# MESH_STREAM_BATCHES batches of STREAM_BATCH of rmat's edges; then
+# MESH_RANKS gloo ranks sharing the card (NCCL refuses two ranks on one
+# card; gloo stages CUDA tensors through the host) on the async path's
+# graphs, each case dense and on the frontier, and the elastic shrink on
+# those ranks, one rank lost at each of the blocks of MESH_FAIL_AT
+MESH_RANKS = 4
+MESH_LOCAL_ROUNDS = (1, 3)
+MESH_SCHEDULES = ((0, 0), (FRONTIER["sampling"], FRONTIER["compact_every"]))
+MESH_STREAM_BATCHES = 8
+MESH_FAIL_AT = ((1, "round"), (2, "round"))
+# a rank's collectives give up after this long, and the spawn after this:
+# a hung rank ends the run with a non-zero exit
+MESH_COLLECTIVE_TIMEOUT_S = 120
+MESH_SPAWN_TIMEOUT_S = 300
+# the time the mesh phase is meant to take at most (reported)
+MESH_BUDGET_S = 60.0
 # kernel against plain version in float32, (atol, rtol, rms_rel) by working
 # type: every element within |a - b| <= atol + rtol * |b|, and the whole
 # output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
@@ -2203,6 +2241,307 @@ def phase_recovery(mesh_host: tuple, mesh_out: tuple, mesh_rounds: int,
     return rows
 
 
+def summed_launches(rows) -> dict:
+    """Each kernel's launches summed over ``rows`` (ranks or cases)."""
+    return {name: sum(r["launches"][name] for r in rows)
+            for name in KERNEL_NAMES}
+
+
+def check_mesh_launches(what: str, launches: dict) -> None:
+    """The distributed path runs K1, K6 and K7 on every shard."""
+    idle = [k for k in ("fused_relax", "converged_early", "pointer_jump")
+            if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"{what}: launched no {idle}")
+
+
+def mesh_path_row(g, name: str, mesh, local_rounds: int,
+                  reference: np.ndarray, dense_ms: float) -> dict:
+    """``solve(g, mesh=mesh, local_rounds=...)`` on a 1-rank NCCL mesh,
+    dense: launches, bit for bit against the ``torch`` backend's mesh
+    solve, scipy's labels, the warm wall beside dense C-2's, host syncs
+    and the card's idle share."""
+    what = f"mesh_path {name} local_rounds={local_rounds}"
+    options = {"mesh": mesh, "local_rounds": local_rounds}
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve(g, **options)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check_mesh_launches(what, launches)
+    reset_launch_counts()
+    plain = solve(g, backend="torch", **options)
+    sync()
+    launched = {k: v for k, v in launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"{what}: the torch backend launched "
+                             f"{launched}")
+    same_result(res, plain, what)
+    if not bool(res.converged):
+        raise AssertionError(f"{what}: not converged")
+    if not np.array_equal(res.labels.cpu().numpy(), reference):
+        raise AssertionError(f"{what}: labels differ from scipy")
+    warm_ms = host_ms(lambda: solve(g, **options))
+    syncs = host_syncs(lambda: solve(g, **options))
+    row = {"phase": "mesh_path", "graph": name, "process_group": "nccl",
+           "ranks": 1, "local_rounds": local_rounds, "schedule": "dense",
+           "n": g.n_vertices, "m": g.n_edges, "wall_s": wall,
+           "warm_ms": warm_ms, "dense_c2_warm_ms": dense_ms,
+           "warm_over_dense_c2": warm_ms / dense_ms,
+           "iterations": int(res.iterations),
+           "edges_visited": float(res.edges_visited),
+           "host_syncs": syncs,
+           "profiled_solve": device_idle(lambda: solve(g, **options)),
+           "launches": launches, "provenance": list(res.provenance or ())}
+    emit(row)
+    return row
+
+
+def mesh_stream_row(host: tuple, name: str, mesh) -> dict:
+    """The stream's mesh path on a 1-rank NCCL mesh: ``MESH_STREAM_BATCHES``
+    batches of ``STREAM_BATCH`` of the graph's edges (device tensors,
+    ``validate=False``), the whole ``state_dict()`` after every batch
+    against the same engine on the ``torch`` backend."""
+    src, dst, n = host
+    card = StreamingConnectivity(n, mesh=mesh)
+    plain = StreamingConnectivity(n, mesh=mesh, backend="torch")
+    per_batch, ingest_ms = [], []
+    for b in range(MESH_STREAM_BATCHES):
+        lo = b * STREAM_BATCH
+        bs = torch.from_numpy(src[lo:lo + STREAM_BATCH]).to(DEVICE)
+        bd = torch.from_numpy(dst[lo:lo + STREAM_BATCH]).to(DEVICE)
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        card.ingest(bs, bd, validate=False)
+        sync()
+        ingest_ms.append((time.perf_counter() - t0) * 1e3)
+        per_batch.append({"launches": launch_counts()})
+        reset_launch_counts()
+        plain.ingest(bs, bd, validate=False)
+        launched = {k: v for k, v in launch_counts().items() if v}
+        if launched:
+            raise AssertionError(f"mesh_stream: the torch backend launched "
+                                 f"{launched}")
+        same_state(card.state_dict(), plain.state_dict(),
+                   f"mesh_stream {name} batch {b}")
+    launches = summed_launches(per_batch)
+    check_mesh_launches("mesh_stream", launches)
+    snap = card.snapshot()
+    row = {"phase": "mesh_stream", "graph": name, "process_group": "nccl",
+           "ranks": 1, "batch": STREAM_BATCH, "batches": MESH_STREAM_BATCHES,
+           "ingest_ms": ingest_ms, "ingest_ms_p50": float(np.median(ingest_ms)),
+           "iterations": int(snap.iterations),
+           "edges_visited": float(snap.edges_visited),
+           "launches": launches}
+    emit(row)
+    return row
+
+
+def rank_graph(directory: str, spec: dict):
+    """A graph the parent saved with ``np.save``, on the host, mapped (copy
+    on write) from its files, and its scipy labels."""
+    src = np.load(f"{directory}/{spec['key']}.src.npy", mmap_mode="c")
+    dst = np.load(f"{directory}/{spec['key']}.dst.npy", mmap_mode="c")
+    ref = np.load(f"{directory}/{spec['key']}.labels.npy", mmap_mode="r")
+    return Graph(src=torch.from_numpy(src), dst=torch.from_numpy(dst),
+                 n_vertices=spec["n"]), ref
+
+
+def mesh_rank(rank: int, world: int, store: str, job: dict) -> None:
+    """One of ``MESH_RANKS`` gloo ranks on the card (a spawned process):
+    every case of ``job["graphs"]`` through ``solve(g, mesh=...)`` with
+    the graph on the host (each rank copies its own block to the card),
+    held bit for bit against the ``torch`` backend's and scipy's; then
+    the elastic shrink.  Writes ``rank<r>.json`` into ``job["dir"]``."""
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    try:
+        mesh = Mesh(np.arange(world), ("data",))
+        blocked.load_library()
+        cv.load_library()
+        torch.zeros(1, device=mesh.device)
+        out = {"rank": rank, "device": str(mesh.device), "cases": []}
+        for name, spec in job["graphs"].items():
+            g, ref = rank_graph(job["dir"], spec)
+            for sampling, compact_every in MESH_SCHEDULES:
+                for local_rounds in MESH_LOCAL_ROUNDS:
+                    what = (f"mesh_ranks {name} rank {rank} local_rounds="
+                            f"{local_rounds} sampling={sampling} "
+                            f"compact_every={compact_every}")
+                    options = {"mesh": mesh, "local_rounds": local_rounds,
+                               "sampling": sampling,
+                               "compact_every": compact_every}
+                    sync()
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    res = solve(g, **options)
+                    sync()
+                    wall = time.perf_counter() - t0
+                    launches = launch_counts()
+                    reset_launch_counts()
+                    plain = solve(g, backend="torch", **options)
+                    launched = {k: v for k, v in launch_counts().items() if v}
+                    if launched:
+                        raise AssertionError(f"{what}: the torch backend "
+                                             f"launched {launched}")
+                    same_result(res, plain, what)
+                    labels = res.labels.cpu().numpy()
+                    if not np.array_equal(labels, ref):
+                        raise AssertionError(f"{what}: labels differ from "
+                                             "scipy")
+                    out["cases"].append({
+                        "graph": name, "local_rounds": local_rounds,
+                        "sampling": sampling, "compact_every": compact_every,
+                        "iterations": int(res.iterations),
+                        "converged": bool(res.converged),
+                        "edges_visited": float(res.edges_visited),
+                        "labels_crc32": zlib.crc32(labels.tobytes()),
+                        "wall_s": wall, "launches": launches})
+        # last: the shrink sheds ranks, which then leave
+        g, ref = rank_graph(job["dir"], job["graphs"][job["elastic"]])
+        injector = FaultInjector(
+            fail_at=MESH_FAIL_AT,
+            exc_factory=lambda step, site: ShardLossFault(1))
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res, stats = resilient_distributed_contour(
+            g, block_rounds=1, fault_injector=injector)
+        sync()
+        out["elastic"] = {
+            "graph": job["elastic"], "wall_s": time.perf_counter() - t0,
+            "stats": stats, "provenance": list(res.provenance),
+            "iterations": int(res.iterations),
+            "converged": bool(res.converged),
+            "labels_equal_scipy": bool(np.array_equal(
+                res.labels.cpu().numpy(), ref)),
+            "launches": launch_counts()}
+        with open(f"{job['dir']}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, store: str, job: dict, timeout_s: float) -> float:
+    """``world`` processes of :func:`mesh_rank`; raises if one fails or
+    the spawn outlives ``timeout_s`` (the ranks are then killed).  Returns
+    the spawn's seconds."""
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(world, store, job),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the {world} mesh ranks still run after "
+                                   f"{timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    return time.perf_counter() - t0
+
+
+def mesh_rank_rows(outs: list, spawn_s: float) -> list:
+    """The ranks' cases, each the same on every rank, with the launches
+    summed over the ranks; and the elastic shrink's row."""
+    rows = []
+    agreed = ("iterations", "converged", "edges_visited", "labels_crc32")
+    for i, case in enumerate(outs[0]["cases"]):
+        each = [out["cases"][i] for out in outs]
+        for key in agreed:
+            if len({json.dumps(c[key]) for c in each}) != 1:
+                raise AssertionError(f"mesh_ranks {case['graph']} case {i}: "
+                                     f"the ranks' {key} differ")
+        launches = summed_launches(each)
+        check_mesh_launches(f"mesh_ranks {case['graph']}", launches)
+        rows.append({"phase": "mesh_ranks", "graph": case["graph"],
+                     "process_group": "gloo", "ranks": len(outs),
+                     "devices": sorted({out["device"] for out in outs}),
+                     "host_staged": True,
+                     **{k: case[k] for k in ("local_rounds", "sampling",
+                                             "compact_every", *agreed)},
+                     "wall_s_max": max(c["wall_s"] for c in each),
+                     "launches": launches})
+        emit(rows[-1])
+    elastic = [out["elastic"] for out in outs]
+    survivors = [e for e in elastic if "shed" not in e["stats"]]
+    want = [[MESH_RANKS - k, 1] for k in range(len(MESH_FAIL_AT) + 1)]
+    shed = sorted(e["stats"]["shed"] for e in elastic if e not in survivors)
+    for e in survivors:
+        if e["stats"]["mesh_history"] != want or not e["converged"] \
+                or not e["labels_equal_scipy"]:
+            raise AssertionError(f"mesh_elastic: {e['stats']}, converged "
+                                 f"{e['converged']}, labels equal scipy "
+                                 f"{e['labels_equal_scipy']}")
+    if len(survivors) != MESH_RANKS - len(MESH_FAIL_AT) \
+            or shed != [block for block, _ in MESH_FAIL_AT]:
+        raise AssertionError(f"mesh_elastic: {len(survivors)} survivors, "
+                             f"shed at blocks {shed}")
+    launches = summed_launches(elastic)
+    check_mesh_launches("mesh_elastic", launches)
+    rows.append({"phase": "mesh_elastic", "graph": elastic[0]["graph"],
+                 "process_group": "gloo", "ranks": len(outs),
+                 "host_staged": True, "fail_at": MESH_FAIL_AT,
+                 "mesh_history": want, "shed_at_blocks": shed,
+                 "stats": survivors[0]["stats"],
+                 "provenance": survivors[0]["provenance"],
+                 "iterations": survivors[0]["iterations"],
+                 "wall_s_max": max(e["wall_s"] for e in elastic),
+                 "spawn_s": spawn_s, "launches": launches})
+    emit(rows[-1])
+    return rows
+
+
+def phase_mesh(main_graphs: dict, rank_graphs: dict, stream_name: str,
+               elastic_name: str) -> list:
+    """The mesh phase.  ``main_graphs`` and ``rank_graphs``: name ->
+    ((src, dst, n) on the host, scipy labels).  First a 1-rank NCCL mesh
+    in this process (FileStore rendezvous): ``mesh_path`` on each main
+    graph at each of ``MESH_LOCAL_ROUNDS``, then ``mesh_stream`` on
+    ``stream_name``, and the process group is destroyed; then
+    ``MESH_RANKS`` gloo ranks on the card over ``rank_graphs``, saved
+    once with ``np.save`` for the ranks to map (``mesh_ranks``), and the
+    elastic shrink on ``elastic_name`` (``mesh_elastic``)."""
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="mesh_") as directory:
+        dist.init_process_group("nccl", init_method=f"file://{directory}/nccl",
+                                rank=0, world_size=1)
+        try:
+            mesh = Mesh(np.array([0]), ("data",))
+            for name, ((src, dst, n), ref) in main_graphs.items():
+                g = Graph.from_numpy(src, dst, n, device=DEVICE)
+                dense_ms = host_ms(lambda: solve(g))
+                rows += [mesh_path_row(g, name, mesh, local_rounds, ref,
+                                       dense_ms)
+                         for local_rounds in MESH_LOCAL_ROUNDS]
+                del g
+            rows.append(mesh_stream_row(main_graphs[stream_name][0],
+                                        stream_name, mesh))
+        finally:
+            dist.destroy_process_group()
+        graphs = {}
+        for i, (name, ((src, dst, n), ref)) in enumerate(rank_graphs.items()):
+            key = f"graph{i}"
+            np.save(f"{directory}/{key}.src.npy", src)
+            np.save(f"{directory}/{key}.dst.npy", dst)
+            np.save(f"{directory}/{key}.labels.npy", ref)
+            graphs[name] = {"key": key, "n": n}
+        job = {"dir": directory, "graphs": graphs, "elastic": elastic_name}
+        spawn_s = spawn_ranks(MESH_RANKS, f"{directory}/gloo", job,
+                              MESH_SPAWN_TIMEOUT_S)
+        outs = []
+        for rank in range(MESH_RANKS):
+            with open(f"{directory}/rank{rank}.json") as f:
+                outs.append(json.load(f))
+    return rows + mesh_rank_rows(outs, spawn_s)
+
+
 def fleet_graphs(kind: str) -> list:
     """A fleet's graphs on the host (``device="cpu"``): ``rmat``,
     ``delaunay`` or ``ragged`` (``BATCH_*``)."""
@@ -3384,8 +3723,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     stream_runs = [drive_stream(delaunay, delaunay_name, ref_delaunay),
                    drive_stream(rmat, rmat_name, ref_rmat)]
-    # the out-of-core path reads rmat's edges from the host
+    # the out-of-core path reads rmat's edges from the host, and the mesh
+    # phase both graphs'
     rmat_host = rmat.to_numpy()
+    delaunay_host = delaunay.to_numpy()
     del rmat, delaunay
     stream_runs += [stream_vs_cpu(g, name) for name, g in (
         (f"delaunay_like({args.check_scale})",
@@ -3415,7 +3756,6 @@ def main(argv=None) -> int:
     stream_name = f"rmat({args.async_rmat_scale},{RMAT_EDGE_FACTOR})"
     oocore_runs, mesh_out, mesh_rounds = phase_oocore(
         rmat_host, async_host[mesh_name], ref_rmat, rmat_name, mesh_name)
-    del rmat_host
     oocore_s = time.perf_counter() - t0
     emit({"phase": "oocore_path_done", "seconds": oocore_s})
     t0 = time.perf_counter()
@@ -3428,7 +3768,22 @@ def main(argv=None) -> int:
           "budget_s": OOCORE_BUDGET_S,
           "within_budget": oocore_s + recovery_s <= OOCORE_BUDGET_S})
 
-    # 12. the kernels line: launches summed over every path's runs
+    # 12. the mesh phase: a 1-rank NCCL mesh on the main path's graphs and
+    # the stream's mesh path, then MESH_RANKS gloo ranks on the card over
+    # the async path's graphs and the elastic shrink
+    t0 = time.perf_counter()
+    _flush.clear()
+    runs += phase_mesh(
+        {rmat_name: (rmat_host, ref_rmat),
+         delaunay_name: (delaunay_host, ref_delaunay)},
+        {name: (async_host[name], ref_async[name]) for name in async_host},
+        rmat_name, mesh_name)
+    del rmat_host, delaunay_host
+    mesh_s = time.perf_counter() - t0
+    emit({"phase": "mesh_done", "seconds": mesh_s,
+          "budget_s": MESH_BUDGET_S, "within_budget": mesh_s <= MESH_BUDGET_S})
+
+    # 13. the kernels line: launches summed over every path's runs
     line = []
     for name in KERNEL_NAMES:
         k = dict(kernels[name])

@@ -12,10 +12,12 @@ Hopper (``kernels/contour_mm/csrc``).  It imports ``torch`` and
     result = solve(g)                # Contour C-2 on the CUDA kernels
     result.n_components
     batch = solve_batch([gen.rmat(10), gen.path(300)])   # a fleet at once
+    solve(g, mesh=Mesh(ranks, ("data",)))   # SPMD over torch.distributed
 """
 from repro_torch.connectivity import (
     ComponentResult,
     Graph,
+    Mesh,
     SolveOptions,
     StrategyChoice,
     StreamingConnectivity,
@@ -31,6 +33,7 @@ from repro_torch.connectivity import (
 __all__ = [
     "ComponentResult",
     "Graph",
+    "Mesh",
     "SolveOptions",
     "StrategyChoice",
     "StreamingConnectivity",

@@ -28,6 +28,15 @@ Fleets of small graphs, padded into one batch::
     batch = solve_batch([g1, g2, g3])
     for r in batch.unstack(): ...
 
+On a mesh of ``torch.distributed`` ranks (SPMD: every rank runs the
+same call, each on its own card; the edges are sharded, the labels
+replicated and merged by an all-reduce a round)::
+
+    dist.init_process_group("nccl", ...)
+    mesh = elastic_mesh(1)                      # ("data", "model")
+    result = solve(graph, mesh=mesh)            # routes to "distributed"
+    result, stats = resilient_distributed_contour(graph)   # elastic
+
 Out-of-core (edges stream from host memory; the card holds the O(n)
 labels plus one chunk)::
 
@@ -58,10 +67,12 @@ from repro_torch.connectivity.oocore import OutOfCoreContraction, solve_chunks
 from repro_torch.connectivity.resilience import (
     RecoveryStats,
     oocore_with_recovery,
+    resilient_distributed_contour,
     stream_with_recovery,
 )
 from repro_torch.connectivity.contour import VARIANTS
 from repro_torch.graphs.structs import Graph
+from repro_torch.runtime.mesh import Mesh
 from repro_torch.runtime.recovery import (FaultInjector, ShardLossFault,
                                           SimulatedFault)
 
@@ -69,6 +80,7 @@ __all__ = [
     "ComponentResult",
     "FaultInjector",
     "Graph",
+    "Mesh",
     "OutOfCoreContraction",
     "RecoveryStats",
     "SAMPLING_STRATEGIES",
@@ -86,6 +98,7 @@ __all__ = [
     "planner",
     "register_sampling_strategy",
     "register_solver",
+    "resilient_distributed_contour",
     "resolve_strategy",
     "solve",
     "solve_batch",

@@ -178,6 +178,10 @@ def solve_batch(
       graph's vertex count.
     """
     opts, spec = _resolve(options, overrides)
+    if opts.mesh is not None:
+        raise ValueError("solve_batch is single-device (one fleet on one "
+                         "device); it does not compose with "
+                         "SolveOptions.mesh")
     if warm_start is None:
         warm_start = opts.warm_start  # same fallback as solve()
 

@@ -255,6 +255,15 @@ def frontier_limit(it: int, active_m: int, sample_m: int,
     return active_m
 
 
+def gate_sampling_done(done, it: int, sampling: int):
+    """Pass-through: convergence may fire during the sampling phase,
+    since :func:`masked_converged_early` tests the whole active prefix,
+    not only the swept sample.  The reference keeps it as the named seam
+    of the masked, staged and distributed loops' convergence site."""
+    del it, sampling
+    return done
+
+
 def apply_compaction(
     L: torch.Tensor,
     src: torch.Tensor,

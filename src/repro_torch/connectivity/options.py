@@ -18,6 +18,12 @@ fields the port honours:
   default) is the paper's dense schedule.  ``sampling_strategy`` picks
   the sampling phase's edges (``frontier.SAMPLING_STRATEGIES``; ``None``
   is ``"prefix"``) and ``sampling_k`` the k-out fan-in;
+* **placement** — ``mesh``/``edge_axes``/``local_rounds`` route the solve
+  through ``connectivity.distributed`` (``algorithm="distributed"``, or
+  ``"contour"`` with a mesh): each rank of the
+  :class:`~repro_torch.runtime.mesh.Mesh` sweeps its block of the edges,
+  sharded over ``edge_axes``, for ``local_rounds`` rounds between two
+  all-reduces of the labels; ``mesh=None`` (the default) is one device;
 * ``warm_start`` — the previous solve's labels (or a whole
   :class:`~repro_torch.connectivity.result.ComponentResult`);
 * **out-of-core streaming** (``algorithm="oocore"``,
@@ -27,10 +33,8 @@ fields the port honours:
   finish is forced) and ``oocore_local_iters`` (bounded local sweeps
   folded per chunk per round).
 
-The reference's other fields (``mesh``, ``edge_axes``, ``local_rounds``,
-``vmem_limit_bytes``) come with the slices that honour them, and
-setting one fails with a ``TypeError``.
-``vmem_limit_bytes`` bounded the TPU scalar kernel's whole-L ceiling,
+The reference's ``vmem_limit_bytes`` is left out, and setting it fails
+with a ``TypeError``: it bounded the TPU scalar kernel's whole-L ceiling,
 which ``cuda_async`` does not have.  ``kernel_fallback`` is left out
 on purpose: a kernel that fails on the card raises; it is never retried
 on the plain path behind the caller's back.
@@ -38,11 +42,12 @@ on the plain path behind the caller's back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 from repro_torch.connectivity.frontier import get_sampling_strategy
 from repro_torch.connectivity.planner.plan import BACKENDS
 from repro_torch.connectivity.planner.staged import MIN_STAGE_EDGES
+from repro_torch.runtime.mesh import Mesh
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -57,6 +62,9 @@ class SolveOptions:
     variant: Optional[str] = None          # per-algorithm default if None
     backend: str = "auto"
     plan: Optional[Any] = None             # a pinned ExecutionPlan
+    mesh: Optional[Mesh] = None            # None = one device
+    edge_axes: Tuple[str, ...] = ("data",)
+    local_rounds: int = 1
     max_iters: Optional[int] = None        # per-algorithm default if None
     warmup: int = 2                        # C-11mm's C-1 prefix length
     async_compress: int = 1                # in-iteration pointer-jump rounds
@@ -78,6 +86,9 @@ class SolveOptions:
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"backend {self.backend!r} not one of {BACKENDS}")
+        if self.local_rounds < 1:
+            raise ValueError(f"local_rounds must be >= 1, got "
+                             f"{self.local_rounds}")
         if self.max_iters is not None and self.max_iters < 1:
             raise ValueError(f"max_iters must be >= 1, got {self.max_iters}")
         # negative counts would silently change the iteration math instead
@@ -92,6 +103,13 @@ class SolveOptions:
         if self.sampling_k < 1:
             raise ValueError(
                 f"sampling_k must be >= 1, got {self.sampling_k}")
+        if self.mesh is not None:
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(f"mesh must be a repro_torch.runtime.Mesh, "
+                                f"got {type(self.mesh).__name__}")
+            if not self.edge_axes:
+                raise ValueError("edge_axes must be non-empty when a mesh "
+                                 "is given")
         if self.oocore_chunk_edges and \
                 self.oocore_chunk_edges < MIN_STAGE_EDGES:
             raise ValueError(

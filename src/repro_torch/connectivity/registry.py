@@ -44,7 +44,7 @@ class SolverSpec:
     default_max_iters: int = 100_000
     supports_warm_start: bool = True
     supports_batch: bool = True          # solvable as one batched call
-    supports_mesh: bool = False          # runs on a Mesh via shard_map
+    supports_mesh: bool = False          # runs on a Mesh (distributed)
     # delta-resweep safe: starting from a star-forest fixed point, sweeping
     # only newly ingested edges (rewritten to their endpoints' current
     # roots) reaches the full graph's fixed point.  A min-mapping property

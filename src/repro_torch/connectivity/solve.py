@@ -29,7 +29,7 @@ from repro_torch.graphs.structs import Graph
 
 # Solver families that resolve an ExecutionPlan at the facade (recorded in
 # provenance); "oocore" also gets the streaming chunk bucket in its plan.
-_PLANNED_SOLVERS = ("contour", "oocore")
+_PLANNED_SOLVERS = ("contour", "distributed", "oocore")
 
 
 def resolve_warm_start(warm_start, n_vertices: int):
@@ -91,7 +91,7 @@ def make_result(labels, iterations, converged, edges_visited=None,
 
 def _resolve(options: Optional[SolveOptions],
              overrides) -> tuple[SolveOptions, SolverSpec]:
-    """Validate options and pick the solver."""
+    """Validate options and pick the solver (mesh-aware)."""
     opts = options if options is not None else SolveOptions()
     if not isinstance(opts, SolveOptions):
         raise TypeError(
@@ -100,6 +100,14 @@ def _resolve(options: Optional[SolveOptions],
         opts = opts.replace(**overrides)
     opts.validate()
     spec = get_solver(opts.algorithm)
+    if opts.mesh is not None:
+        if not spec.supports_mesh:
+            raise ValueError(
+                f"solver {spec.name!r} does not run on a mesh; use "
+                "algorithm='contour' (or 'distributed')")
+        if spec.name == "contour":
+            # automatic single-device vs mesh dispatch
+            spec = get_solver("distributed")
     opts = opts.replace(
         variant=spec.validate_variant(opts.variant),
         # registry default is the single source of per-solver budgets

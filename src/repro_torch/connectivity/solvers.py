@@ -11,6 +11,10 @@ reference's variants, iteration budgets and capability flags:
 * ``label_propagation`` — paper §I/§V, the traversal-family baseline;
 * ``union_find``        — paper §III-C, the ConnectIt stand-in (Rem's
   union-find with splicing, on the host);
+* ``distributed``       — Contour's order-2 rounds with the edges sharded
+  over a :class:`~repro_torch.runtime.mesh.Mesh` of ``torch.distributed``
+  ranks (``connectivity.distributed``); ``contour`` with a mesh routes
+  here;
 * ``oocore``            — out-of-core multi-round contraction
   (``connectivity.oocore``): the edges stream from host memory chunk by
   chunk, so the problem's size is not bounded by device memory;
@@ -18,14 +22,13 @@ reference's variants, iteration budgets and capability flags:
   planner's cost model (``planner.resolve_strategy``) picks the solver
   family and sampling strategy per graph from its size and degree skew,
   and the choice lands in provenance.
-
-The reference's ``distributed`` comes with a later slice.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.connectivity import contour as _contour
+from repro_torch.connectivity import distributed as _distributed
 from repro_torch.connectivity import fastsv as _fastsv
 from repro_torch.connectivity import lp as _lp
 from repro_torch.connectivity import planner as _planner
@@ -97,6 +100,37 @@ def _contour_solver(graph, opts, init_labels):
         sampling_k=opts.sampling_k,
     )
     return (*out, (plan.provenance_entry(), *_sampling_provenance(opts)))
+
+
+def _distributed_solver(graph, opts, init_labels):
+    if opts.mesh is None:
+        raise ValueError(
+            "the 'distributed' solver needs SolveOptions.mesh (a "
+            "repro_torch.runtime.Mesh); for single-device solves use "
+            "algorithm='contour'")
+    if (opts.sampling_strategy or "prefix") != "prefix":
+        raise ValueError(
+            "the 'distributed' solver samples a deterministic per-shard "
+            "edge prefix; sampling_strategy "
+            f"{opts.sampling_strategy!r} is single-device only (it "
+            "permutes the global edge list, which would break the static "
+            "shard layout) — use algorithm='contour'")
+    # the plan of the ranks' device; each shard runs the masked frontier
+    plan = resolve_backend_plan(graph.n_vertices, graph.n_edges,
+                                opts.mesh.device, opts)
+    out = _distributed.distributed_contour(
+        graph, opts.mesh,
+        edge_axes=tuple(opts.edge_axes),
+        local_rounds=opts.local_rounds,
+        max_iters=opts.max_iters,
+        async_compress=opts.async_compress,
+        backend=plan.backend,
+        plan=plan,
+        init_labels=init_labels,
+        sampling=opts.sampling,
+        compact_every=opts.compact_every,
+    )
+    return (*out, (plan.provenance_entry(),))
 
 
 def _fastsv_solver(graph, opts, init_labels):
@@ -186,8 +220,22 @@ CONTOUR = register_solver(SolverSpec(
     variants=_contour.VARIANTS + ("C-<h>",),
     default_variant="C-2",
     default_max_iters=100_000,
+    supports_mesh=True,          # via automatic routing to 'distributed'
     supports_streaming=True,     # any async variant (C-Syn rejected)
     paper_ref="§III-B (Alg. 1, variants §III-B4)",
+))
+
+DISTRIBUTED = register_solver(SolverSpec(
+    name="distributed",
+    fn=_distributed_solver,
+    aliases=("contour_distributed",),
+    variants=("C-2",),
+    default_variant="C-2",
+    default_max_iters=10_000,
+    supports_batch=False,        # SPMD placement, one graph a call
+    supports_mesh=True,
+    supports_streaming=True,     # per-shard delta contraction, C-2 only
+    paper_ref="§III-B over §IV's distributed mapping",
 ))
 
 FASTSV = register_solver(SolverSpec(

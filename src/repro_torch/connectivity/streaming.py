@@ -45,9 +45,16 @@ batch check (``validate=True``) and the query checks run on the host
 first, since a CUDA gather out of range raises a device-side assert that
 poisons the context.
 
-The reference's ``SolveOptions.mesh`` path and its kernel fallback are
-not ported: a kernel that fails in an ingest raises through the
-rollback to the caller, and is never retried on the plain path.
+With ``SolveOptions.mesh`` each batch's delta solve is
+``distributed.distributed_edges`` over the root-rewritten batch, warm
+from the resident labels, with ``n_active`` the batch's real size: every
+rank of the mesh runs its own engine on the same batches (SPMD), each
+holding the replicated labels on its own device (``mesh.device``, the
+engine's device unless one is named).
+
+The reference's kernel fallback is not ported: a kernel that fails in an
+ingest raises through the rollback to the caller, and is never retried
+on the plain path.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.connectivity import distributed as dist_cc
 from repro_torch.connectivity import frontier as fr
 from repro_torch.connectivity import minmap as lab
 from repro_torch.connectivity.contour import _make_step
@@ -157,7 +165,8 @@ class StreamingConnectivity:
         (before the delta solve) and ``"post_write"`` (after the store
         write, before the commit).
       device: where the labels, store and counters live; ``cuda``
-        unless named (tests pass ``"cpu"``).
+        unless named (tests pass ``"cpu"``), or the mesh's device with
+        ``SolveOptions.mesh``.
       **overrides: per-field :class:`SolveOptions` overrides, as for
         ``solve()``.
     """
@@ -197,7 +206,9 @@ class StreamingConnectivity:
             opts = opts.replace(compact_every=1)
         self._opts = opts
         self._spec = spec
-        self._device = resolve_device(device)
+        self._device = (opts.mesh.device
+                        if opts.mesh is not None and device is None
+                        else resolve_device(device))
         self._n = int(n_vertices)
         # labels at pow2 capacity: vertices in [n, capacity) are
         # identity-labelled singletons no real edge can touch
@@ -423,6 +434,23 @@ class StreamingConnectivity:
         opts = self._opts
         plan = self._plan(pad_k, opts)
         self._record_plan(plan)
+        if opts.mesh is not None:
+            # the supervertex rewrite (delta_converge does it on one
+            # device); the padding's self-loops stay self-loops, and the
+            # replica spans the label capacity, as the resident labels do
+            return dist_cc.distributed_edges(
+                self._labels[src_p], self._labels[dst_p], self._n_cap,
+                opts.mesh,
+                edge_axes=tuple(opts.edge_axes),
+                local_rounds=opts.local_rounds,
+                max_iters=opts.max_iters,
+                async_compress=opts.async_compress,
+                backend=plan.backend,
+                plan=plan,
+                init_labels=self._labels,
+                sampling=opts.sampling,
+                compact_every=opts.compact_every,
+                n_active=k)
         return delta_converge(
             src_p, dst_p, self._labels, k,
             variant=opts.variant,

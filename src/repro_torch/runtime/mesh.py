@@ -1,0 +1,192 @@
+"""A mesh of ``torch.distributed`` ranks: the port's ``jax.sharding.Mesh``.
+
+The reference places a distributed solve on a ``jax.sharding.Mesh`` (an
+ndarray of devices with named axes) and lets ``shard_map`` give each
+device its block and run ``lax.pmin``/``psum`` over named axes.  The port
+runs SPMD instead: one process per rank, every rank running the same
+program on its own block, with ``torch.distributed`` collectives.
+:class:`Mesh` is that program's view of the placement:
+
+* ``devices`` — an ndarray of ranks, so ``tuple(mesh.devices.shape)``
+  reads as in the reference; ``axis_names``; ``shape`` (name -> size);
+* the calling rank's ``coordinate`` in it (None for a rank outside the
+  mesh: the surplus ranks an elastic mesh leaves out);
+* :meth:`Mesh.group` — the process group over a tuple of axes: the ranks
+  that share the calling rank's coordinates on the other axes (the
+  reference's ``axis_name=`` of a collective);
+* :meth:`Mesh.shard_index` — the rank's block of an array sharded over a
+  tuple of axes, the first axis major (``PartitionSpec((a, b))``);
+* ``device`` — the rank's own device: ``cuda:(local_rank %
+  device_count())`` unless the caller names one (the tests pass
+  ``device="cpu"``).  Without CUDA and without a named device the mesh
+  raises; it never lands on the CPU on its own.
+
+The process-group backend (``"nccl"`` on the card, ``"gloo"`` on the
+CPU or for ranks that share a card) is whatever the caller initialised
+with ``torch.distributed.init_process_group``; nothing here changes it.
+
+Groups are made with ``use_local_synchronization=True``: only the members
+of a group take part in making it.  That is what lets a mesh live on a
+subset of the world — after an elastic shrink the ranks shed from the
+mesh have left the solve and make no further calls — where the default
+mode needs every rank of the world, member or not, in every
+``new_group`` call in the same order.  Each rank makes each distinct
+group once per process group world and reuses it
+(:func:`group_of`); a group that spans the whole world is the default
+group itself.  ``torch.distributed.device_mesh.DeviceMesh`` is not used:
+it covers neither a product of axes without private API nor a mesh over
+part of the world.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.graphs.structs import DeviceLike
+
+# (ranks) -> (the world group it was made under, the group); a group made
+# under a world that has since been destroyed is made again
+_GROUPS: Dict[Tuple[int, ...], tuple] = {}
+
+
+def group_of(ranks: Sequence[int]):
+    """The process group over ``ranks`` (in that order), made on first use
+    by the members only; ``None`` (the default group) when ``ranks`` is
+    the whole world.  Every member must call it at the same point of the
+    program, as for any collective."""
+    ranks = tuple(int(r) for r in ranks)
+    if ranks == tuple(range(dist.get_world_size())):
+        return None
+    world = dist.group.WORLD
+    made = _GROUPS.get(ranks)
+    if made is None or made[0] is not world:
+        made = (world, dist.new_group(list(ranks),
+                                      use_local_synchronization=True))
+        _GROUPS[ranks] = made
+    return made[1]
+
+
+def local_rank() -> int:
+    """The rank's index on its host: ``LOCAL_RANK`` (set by ``torchrun``),
+    else the global rank, else 0."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def mesh_device(device: DeviceLike = None) -> torch.device:
+    """A rank's device: the named one, else ``cuda:(local_rank %
+    device_count())``; raises without CUDA when none is named."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "mesh's ranks on the CPU")
+    return torch.device("cuda", local_rank() % torch.cuda.device_count())
+
+
+class Mesh:
+    """An ndarray of ``torch.distributed`` ranks with named axes.
+
+    ``Mesh(np.arange(8).reshape(2, 4), ("pod", "data"))`` places ranks
+    0-7 on a 2 x 4 grid.  The ranks need not be the whole world: the
+    calling rank may lie outside the mesh (``coordinate`` is None), and
+    then takes part in none of its collectives.  The calling rank is read
+    from the initialised default process group when it is first needed,
+    so a mesh can be built (and a ``SolveOptions`` holding it validated)
+    before ``init_process_group``.
+    """
+
+    def __init__(self, devices, axis_names: Sequence[str], *,
+                 device: DeviceLike = None):
+        ranks = np.asarray(devices)
+        if ranks.dtype.kind not in "iu":
+            raise TypeError(f"a mesh holds integer ranks, got {ranks.dtype}")
+        names = tuple(axis_names)
+        if ranks.ndim != len(names):
+            raise ValueError(f"{len(names)} axis names {names} for a mesh of "
+                             f"shape {ranks.shape}")
+        if len(set(names)) != len(names):
+            raise ValueError(f"axis names must be distinct, got {names}")
+        if len(np.unique(ranks)) != ranks.size or ranks.size == 0:
+            raise ValueError(f"a mesh holds distinct ranks, got "
+                             f"{ranks.tolist()}")
+        self.devices = ranks.astype(np.int64)
+        self.axis_names = names
+        self.shape = dict(zip(names, ranks.shape))
+        self.device = mesh_device(device)
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.devices.tolist()}, {self.axis_names}, "
+                f"device={str(self.device)!r})")
+
+    @property
+    def rank(self) -> int:
+        """The calling process's global rank."""
+        return dist.get_rank()
+
+    def coordinate_of(self, rank: int) -> Optional[Tuple[int, ...]]:
+        """``rank``'s index on each axis; None outside the mesh."""
+        at = np.argwhere(self.devices == rank)
+        return tuple(int(i) for i in at[0]) if len(at) else None
+
+    @property
+    def coordinate(self) -> Optional[Tuple[int, ...]]:
+        """The calling rank's index on each axis; None outside the mesh."""
+        return self.coordinate_of(self.rank)
+
+    def _check_axes(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        axes = tuple(axes)
+        unknown = [a for a in axes if a not in self.shape]
+        if unknown or not axes or len(set(axes)) != len(axes):
+            raise ValueError(f"axes {axes} must be distinct names of the "
+                             f"mesh's axes {self.axis_names}")
+        return axes
+
+    def _member_coordinate(self, rank: Optional[int]) -> Tuple[int, ...]:
+        rank = self.rank if rank is None else rank
+        coord = self.coordinate_of(rank)
+        if coord is None:
+            raise ValueError(f"rank {rank} is not in {self!r}")
+        return coord
+
+    def n_shards(self, axes: Sequence[str]) -> int:
+        """How many blocks an array sharded over ``axes`` has."""
+        return int(np.prod([self.shape[a] for a in self._check_axes(axes)]))
+
+    def shard_index(self, axes: Sequence[str],
+                    rank: Optional[int] = None) -> int:
+        """The block of an array sharded over ``axes`` that ``rank``
+        (default: the calling rank) holds, the first axis major (as
+        ``PartitionSpec(axes)`` lays it out)."""
+        axes = self._check_axes(axes)
+        coord = self._member_coordinate(rank)
+        index = 0
+        for a in axes:
+            k = self.axis_names.index(a)
+            index = index * self.shape[a] + coord[k]
+        return index
+
+    def group_ranks(self, axes: Sequence[str],
+                    rank: Optional[int] = None) -> Tuple[int, ...]:
+        """The ranks that share ``rank``'s (default: the calling rank's)
+        coordinates on every axis but ``axes``, in shard order."""
+        axes = self._check_axes(axes)
+        coord = self._member_coordinate(rank)
+        index = tuple(slice(None) if a in axes else coord[k]
+                      for k, a in enumerate(self.axis_names))
+        # the kept axes in the order named, so the first is major
+        kept = [a for a in self.axis_names if a in axes]
+        block = self.devices[index]
+        block = np.transpose(block, [kept.index(a) for a in axes])
+        return tuple(int(r) for r in block.reshape(-1))
+
+    def group(self, axes: Sequence[str]):
+        """The process group of the collectives over ``axes``
+        (:func:`group_of`)."""
+        return group_of(self.group_ranks(axes))

@@ -41,10 +41,10 @@ class ShardLossFault(SimulatedFault):
     """Simulated loss of ``n_lost`` device shard(s) mid-solve.
 
     Raised by a :class:`FaultInjector` (via ``exc_factory``) between
-    rounds of a distributed solve; the reference's elastic solver
-    (``connectivity.resilience``, not ported yet) reacts by re-deriving
-    a smaller mesh over the surviving devices and warm-restarting from
-    the last good labels.
+    rounds of a distributed solve; the elastic solver
+    (``connectivity.resilience.resilient_distributed_contour``) reacts by
+    re-deriving a smaller mesh over the surviving ranks and
+    warm-restarting from the last good labels.
     """
 
     def __init__(self, n_lost: int = 1, message: str = ""):

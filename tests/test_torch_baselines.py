@@ -87,14 +87,14 @@ def test_family_budget_runs_match_reference(algorithm, max_iters, chunk,
 
 
 def test_registry_matches_reference():
-    """The port registers six families; the baselines, the out-of-core
-    solver and ``auto`` with the reference's aliases, budgets, capability
-    flags and paper sections."""
-    assert repro_torch.list_solvers() == ("auto", "contour", "fastsv",
-                                          "label_propagation", "oocore",
-                                          "union_find")
+    """The port registers the reference's seven families; the baselines,
+    the out-of-core solver, ``auto`` and ``distributed`` with the
+    reference's aliases, budgets, capability flags and paper sections."""
+    assert repro_torch.list_solvers() == ("auto", "contour", "distributed",
+                                          "fastsv", "label_propagation",
+                                          "oocore", "union_find")
     for name in ("fastsv", "label_propagation", "union_find", "oocore",
-                 "auto"):
+                 "auto", "distributed"):
         port = dataclasses.asdict(get_solver(name))
         ref = dataclasses.asdict(ref_registry.get_solver(name))
         for key in ("fn", "variants"):
@@ -103,7 +103,8 @@ def test_registry_matches_reference():
         assert port == ref, name
     for alias, name in (("lp", "label_propagation"),
                         ("connectit", "union_find"), ("rem", "union_find"),
-                        ("out_of_core", "oocore")):
+                        ("out_of_core", "oocore"),
+                        ("contour_distributed", "distributed")):
         assert get_solver(alias).name == name
     with pytest.raises(ValueError, match="takes no variant"):
         repro_torch.solve(_pair("path")[1], algorithm="fastsv",

@@ -1605,3 +1605,79 @@ def test_fleet_unchanged_at_the_fleets_shapes_on_the_card(cuda):
                 _hold_unchanged(pa, pb, n_, words)
         for x, words in _unchanged_cases(live, live.clone(), n_, lanes_b):
             _hold_unchanged(live, x, n_, words)
+
+
+# ---------------------------------------------------------------------------
+# the distributed solve on a 1-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A 1-rank NCCL world (FileStore rendezvous) and its mesh on the
+    card, destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.runtime import Mesh
+
+    if not dist.is_nccl_available():
+        pytest.skip("this torch has no NCCL")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield Mesh(np.array([0]), ("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_result(a, b):
+    for field in ("labels", "iterations", "converged", "edges_visited"):
+        assert torch.equal(getattr(a, field).cpu(), getattr(b, field).cpu()), \
+            field
+
+
+@pytest.mark.parametrize("local_rounds", [1, 3])
+@pytest.mark.parametrize("schedule", [(0, 0), (2, 2), (0, 1)])
+def test_mesh_solve_on_the_card_equals_the_torch_backend(nccl_mesh,
+                                                         local_rounds,
+                                                         schedule):
+    """``solve(g, mesh=...)`` on a 1-rank NCCL mesh runs K1, K6 and K7 on
+    each shard and equals the same mesh solve on the plain ``torch``
+    backend bit for bit, and scipy's partition."""
+    from repro_torch.kernels.contour_mm import converged as cv
+
+    g = gen.components_mix([gen.path(3000, seed=1, device="cpu"),
+                            gen.rmat(12, seed=2, device="cpu")], seed=3,
+                           device=nccl_mesh.device)
+    sampling, compact_every = schedule
+    options = dict(mesh=nccl_mesh, local_rounds=local_rounds,
+                   sampling=sampling, compact_every=compact_every)
+    contour_mm.reset_launch_counts()
+    res = solve(g, **options)
+    assert res.labels.device == nccl_mesh.device
+    assert blocked.fused_relax.launches > 0
+    assert cv.converged_early.launches > 0 and cv.pointer_jump.launches > 0
+    contour_mm.reset_launch_counts()
+    plain = solve(g, backend="torch", **options)
+    assert blocked.fused_relax.launches == 0
+    _same_result(res, plain)
+    np.testing.assert_array_equal(res.labels.cpu().numpy(),
+                                  connected_components_oracle(*g.to_numpy()))
+
+
+def test_mesh_stream_on_the_card_equals_the_torch_backend(nccl_mesh):
+    """The stream's mesh path on the card: ``state_dict()`` after every
+    batch equals the ``torch`` backend's on the same mesh."""
+    from repro_torch import StreamingConnectivity
+
+    n, batches = _stream_batches(1 << 12, seed=5)
+    card = StreamingConnectivity(n, mesh=nccl_mesh)
+    plain = StreamingConnectivity(n, mesh=nccl_mesh, backend="torch")
+    for src, dst in batches:
+        card.ingest(src, dst)
+        plain.ingest(src, dst)
+        want, got = plain.state_dict(), card.state_dict()
+        for key, value in want.items():
+            if isinstance(value, torch.Tensor):
+                assert torch.equal(got[key].cpu(), value.cpu()), key
+            else:
+                assert got[key] == value, key

@@ -48,7 +48,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                    "serving.simulate", "data.dedup", "connectivity.batch",
                    "connectivity.planner.cache",
                    "connectivity.planner.autotune",
-                   "connectivity.planner.costmodel"):
+                   "connectivity.planner.costmodel",
+                   "connectivity.distributed", "runtime.mesh",
+                   "runtime.elastic"):
         assert f"repro_torch.{module}" in modules
     code = (
         "import importlib, sys\n"

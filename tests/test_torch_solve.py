@@ -13,15 +13,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro  # noqa: E402
+from repro import jax_compat  # noqa: E402
 from repro.graphs import generators as ref_gen  # noqa: E402
 
 import repro_torch  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.connectivity import SolveOptions, contour, minmap  # noqa: E402
 from repro_torch.kernels.contour_mm import ops  # noqa: E402
+from repro_torch.runtime import Mesh  # noqa: E402
 
 VARIANTS = ("C-Syn", "C-1", "C-2", "C-m", "C-11mm", "C-1m1m", "C-3")
 ISOLATED = 3   # isolated vertices appended to every graph
@@ -198,9 +201,8 @@ BAD_OPTIONS = [
     ({"sampling": -1}, ValueError, "sampling"),
     ({"compact_every": -2}, ValueError, "compact_every"),
     ({"variant": "C-7x"}, ValueError, "unknown variant"),
-    # the reference's family the port still leaves out ("auto" is
-    # registered since)
-    ({"algorithm": "distributed"}, ValueError, "unknown algorithm"),
+    # the distributed family needs a mesh, as the reference's does
+    ({"algorithm": "distributed"}, ValueError, "mesh"),
     ({"algorithm": "oocore", "variant": "C-Syn"}, ValueError, "C-Syn"),
     ({"sampling": 2, "variant": "C-Syn"}, ValueError, "C-Syn"),
     ({"compact_every": 4, "variant": "C-Syn"}, ValueError, "C-Syn"),
@@ -221,13 +223,21 @@ def test_option_errors(overrides, err, match):
 
 # the reference's fields the port leaves out: setting one is an error
 # ("plan" is ported since, and checked below as the pinned plan it is)
-OMITTED = ["mesh", "edge_axes", "local_rounds", "plan", "kernel_fallback",
-           "vmem_limit_bytes"]
+OMITTED = ["plan", "kernel_fallback", "vmem_limit_bytes"]
 PINNED_PLAN = "plan"
-# the reference's out-of-core fields, ported since: the reference's
-# defaults, and a value it refuses fails as loudly
-PORTED = {"oocore_chunk_edges": 512, "oocore_round_cap": 0,
-          "oocore_local_iters": 0}
+# the reference's fields ported since (out-of-core, then placement): the
+# reference's defaults, and overrides it refuses fail as loudly ("MESH"
+# is a one-device mesh of each package)
+PORTED = {"oocore_chunk_edges": {"oocore_chunk_edges": 512},
+          "oocore_round_cap": {"oocore_round_cap": 0},
+          "oocore_local_iters": {"oocore_local_iters": 0},
+          "local_rounds": {"local_rounds": 0},
+          "edge_axes": {"mesh": "MESH", "edge_axes": ()},
+          "mesh": {"mesh": "MESH", "edge_axes": ()}}
+
+
+def _with_mesh(overrides: dict, mesh) -> dict:
+    return {k: (mesh if v == "MESH" else v) for k, v in overrides.items()}
 
 
 @pytest.mark.parametrize("field", OMITTED + sorted(PORTED))
@@ -237,10 +247,14 @@ def test_omitted_fields_fail_loudly(field):
     if field in PORTED:
         assert getattr(SolveOptions(), field) == \
             getattr(repro.SolveOptions(), field)
+        ref_mesh = jax_compat.device_mesh(np.array(jax.devices()[:1]),
+                                          ("data",))
+        port_mesh = Mesh(np.array([0]), ("data",), device="cpu")
         with pytest.raises(ValueError, match=field):
-            repro.SolveOptions(**{field: PORTED[field]}).validate()
+            repro.SolveOptions(
+                **_with_mesh(PORTED[field], ref_mesh)).validate()
         with pytest.raises(ValueError, match=field):
-            repro_torch.solve(g, **{field: PORTED[field]})
+            repro_torch.solve(g, **_with_mesh(PORTED[field], port_mesh))
         return
     if field == PINNED_PLAN:
         # the reference's default, and anything but a plan fails loudly
@@ -263,9 +277,9 @@ def test_other_solve_errors():
         repro_torch.solve(g, warm_start=np.full(g.n_vertices, -1))
     with pytest.raises(ValueError, match="1-D"):
         repro_torch.solve(g, warm_start=np.zeros((2, 2), np.int32))
-    assert repro_torch.list_solvers() == ("auto", "contour", "fastsv",
-                                          "label_propagation", "oocore",
-                                          "union_find")
+    assert repro_torch.list_solvers() == ("auto", "contour", "distributed",
+                                          "fastsv", "label_propagation",
+                                          "oocore", "union_find")
 
 
 @pytest.mark.parametrize("it", [1, 3, 7, 29, 100])

@@ -332,10 +332,11 @@ def test_registry_flags_equal_reference():
     ours = {s.name: s for s in registry.solver_specs()}
     theirs = {s.name: s for s in ref_registry.solver_specs()}
     shared = sorted(set(ours) & set(theirs))
-    assert shared == ["auto", "contour", "fastsv", "label_propagation",
-                      "oocore", "union_find"]
+    assert shared == ["auto", "contour", "distributed", "fastsv",
+                      "label_propagation", "oocore", "union_find"]
     for name in shared:
-        for flag in ("supports_warm_start", "supports_streaming", "runs_on"):
+        for flag in ("supports_warm_start", "supports_streaming", "runs_on",
+                     "supports_mesh"):
             assert getattr(ours[name], flag) == getattr(theirs[name], flag), \
                 (name, flag)
 
