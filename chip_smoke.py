@@ -97,7 +97,21 @@ against scipy's connected components:
   their plain versions there and at other widths of the repo's models;
   both in bfloat16 and float16; ``flash_attention``'s 16-bit kernel is
   also shown to run on ``wgmma`` and TMA in both types (its SASS), with
-  its rate and SDPA's error beside it.
+  its rate and SDPA's error beside it;
+* right after them, the LM serving path (``lm_path``):
+  ``repro_torch.launch.serve.BatchedServer`` over ``repro_torch.models``
+  at mistral-nemo-12b's full width and depth (40 layers, 12,247,782,400
+  bfloat16 weights drawn on the card from a seeded generator) serving
+  prompts of 4096, 1024, 512 and 37 tokens on 2 slots, 16 new tokens
+  each: every request against the same request served alone, the
+  4096-token prefill and a decode step timed beside their bounds, a
+  decode step under ``torch.profiler``, the peak memory; the reference's
+  prefill/decode consistency at 2 layers (and printed at 40), bfloat16
+  against float32 logits of the same weights, a smoke config on the card
+  against CPU tensors, and ``flash_mha``/``rmsnorm_rows`` against the
+  path's ``attend_chunked``/``apply_norm`` on its own tensors (the path
+  itself launches none of the port's kernels, as the reference's models
+  call none).  Its weights are freed before the graphs are made.
 
 Every phase prints one JSON line with its seconds; any failed check
 raises and the script exits non-zero.  The lines before the last are the
@@ -142,7 +156,9 @@ import torch.multiprocessing as mp  # noqa: E402
 
 from repro_torch import (Graph, StreamingConnectivity, solve,  # noqa: E402
                          solve_batch, stack_graphs)
+from repro_torch import interop  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.connectivity import SAMPLING_STRATEGIES, minmap  # noqa: E402
 from repro_torch.connectivity import fastsv  # noqa: E402
 from repro_torch.connectivity import oocore  # noqa: E402
@@ -166,6 +182,11 @@ from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
     fused_rmsnorm, rmsnorm_ref)
 from repro_torch.kernels.fused_rmsnorm import \
     kernel as rms_kernel  # noqa: E402
+from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
+from repro_torch.models import attention as lm_attn  # noqa: E402
+from repro_torch.models import common as lm_common  # noqa: E402
+from repro_torch.models import transformer as lm_tfm  # noqa: E402
+from repro_torch.models.model import build_model, lm_param_specs  # noqa: E402
 from repro_torch.runtime import (FaultInjector, Mesh,  # noqa: E402
                                  ShardLossFault, SimulatedFault)
 from repro_torch.serving import ConnectivityEngine  # noqa: E402
@@ -278,6 +299,35 @@ MESH_COLLECTIVE_TIMEOUT_S = 120
 MESH_SPAWN_TIMEOUT_S = 300
 # the time the mesh phase is meant to take at most (reported)
 MESH_BUDGET_S = 60.0
+# the LM serving path (launch.serve.BatchedServer over models/):
+# mistral-nemo-12b at full width and depth, weights drawn on the card from
+# a seeded generator in bfloat16; 4 requests on 2 slots, prompts drawn
+# with np.random.default_rng(0).  4096 >= flash_block_threshold and a
+# multiple of both chunks, so that prompt runs attend_chunked; the others
+# attend_full
+LM_ARCH = "mistral-nemo-12b"
+LM_PROMPTS = (4096, 1024, 512, 37)
+LM_MAX_NEW = 16
+LM_SLOTS = 2
+LM_MAX_LEN = 4112
+LM_SEED = 0
+# prefill/decode consistency: tests/test_models.py:71-106's batch, tokens,
+# prompt and atol = rtol, at full width with 2 layers (a check) and at 40
+# (printed)
+LM_CONSISTENCY = {"layers": 2, "batch": 2, "tokens": 12, "prompt": 8,
+                  "tol": 2e-2}
+# the card against CPU tensors: a smoke config in float32, the same
+# carried-across weights, prefill and decode logits within atol = rtol
+LM_CPU_TOL = 1e-4
+# bfloat16 logits against float32 logits of the same weights (full width,
+# 2 layers): rms(bf16 - f32) / rms(f32) at most this (PERF.md: twice the
+# 0.0097 read on the CPU at a quarter and an eighth of the width)
+LM_BF16_REL_RMS = 0.02
+# timed calls of a prefill and of a decode step (CUDA events)
+LM_PREFILL_REPS = 3
+LM_DECODE_REPS = 20
+# the time the LM phase is meant to take at most (reported)
+LM_BUDGET_S = 120.0
 # kernel against plain version in float32, (atol, rtol, rms_rel) by working
 # type: every element within |a - b| <= atol + rtol * |b|, and the whole
 # output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
@@ -3461,6 +3511,313 @@ def float_kernel_entry(name: str, source: str, checked: dict,
             "ops": path["ops"]}
 
 
+def lm_events_ms(fn, reps: int) -> tuple:
+    """Mean host-clock wall (to ``synchronize()``) and device time (CUDA
+    events) of ``fn()`` over ``reps`` calls after a warm one, in ms, and
+    the last call's output."""
+    fn()
+    sync()
+    walls, pairs = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        sync()
+        walls.append(time.perf_counter() - t0)
+        pairs.append((start, end))
+    return (sum(walls) / reps * 1e3,
+            sum(a.elapsed_time(b) for a, b in pairs) / reps, out)
+
+
+def lm_bounds(config, n_params: int, prompt: int, cache_len: int) -> dict:
+    """The least times of a prefill of ``prompt`` tokens (its products at
+    the bf16 tensor-core rate: 2 operations a weight a token, the LM head
+    at the last position only, attention's two products causal and, as
+    ``attend_chunked`` computes them, over every key block) and of a
+    decode step against ``cache_len`` positions (every weight but the
+    embedding table read once, and the valid K/V, at the HBM rate)."""
+    d, vp, hd = config.d_model, config.padded_vocab, config.hd
+    size = torch.finfo(config.param_dtype).bits // 8
+    table = vp * d
+    body = n_params - table * (1 if config.tie_embeddings else 2)
+    weight_ops = 2 * prompt * body + 2 * d * vp
+    attn_ops = 4 * prompt * prompt * hd * config.n_heads * config.n_layers
+    kv_token = 2 * config.n_layers * config.n_kv_heads * hd * \
+        (torch.finfo(config.dtype).bits // 8)
+    weight_bytes = (body + table) * size
+    return {
+        "prefill_ops": weight_ops + attn_ops // 2,
+        "prefill_bound_ms": (weight_ops + attn_ops // 2)
+        / BF16_TENSOR_OPS_PER_S * 1e3,
+        "prefill_bound_ms_every_block": (weight_ops + attn_ops)
+        / BF16_TENSOR_OPS_PER_S * 1e3,
+        "decode_bytes": weight_bytes + cache_len * kv_token,
+        "decode_bound_ms": (weight_bytes + cache_len * kv_token)
+        / HBM_BYTES_PER_S * 1e3,
+        "decode_weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "kv_bytes_a_token": kv_token}
+
+
+def lm_consistency(model, params, config) -> dict:
+    """The reference's prefill/decode criterion (tests/test_models.py:
+    71-106): prefill ``prompt`` tokens, decode the rest one at a time; the
+    last step's logits against the whole sequence's prefill at its last
+    position.  ``excess`` > 0 where an element lies past atol + rtol |b|."""
+    c = LM_CONSISTENCY
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(0, config.vocab_size,
+                                          (c["batch"], c["tokens"])),
+                             device=DEVICE)
+    with torch.inference_mode():
+        full, _ = model.prefill(params, {"tokens": tokens})
+        logits, cache = model.prefill(
+            params, {"tokens": tokens[:, :c["prompt"]]}, max_len=c["tokens"])
+        for i in range(c["prompt"], c["tokens"]):
+            logits, cache = model.decode_step(params, tokens[:, i:i + 1],
+                                              cache)
+    a, b = logits[:, -1].float(), full[:, -1].float()
+    diff = (a - b).abs()
+    return {"max_abs_diff": float(diff.max()),
+            "excess": float((diff - c["tol"] - c["tol"] * b.abs()).max()),
+            "max_abs_logit": float(b.abs().max()), "tol": c["tol"]}
+
+
+def numpy_lm_params(config, seed: int):
+    """Seeded float32 numpy weights in the reference's layout (ones and
+    zeros where the specs say): what ``interop.lm_params_from_numpy``
+    carries onto a device."""
+    rng = np.random.default_rng(seed)
+
+    def draw(spec):
+        if spec.init in ("zeros", "ones"):
+            return np.full(spec.shape, spec.init == "ones", np.float32)
+        return (rng.standard_normal(spec.shape) * spec.scale).astype(
+            np.float32)
+
+    return lm_common.tree_map(draw, lm_param_specs(config), lm_common.is_spec)
+
+
+def lm_card_vs_cpu() -> dict:
+    """The smoke config of ``LM_ARCH`` in float32 on the card and on CPU
+    tensors, the same carried-across weights: prefill and 4 decode
+    steps' logits within ``LM_CPU_TOL``, greedy tokens equal."""
+    config = get_arch(LM_ARCH).smoke_config().replace(
+        dtype=torch.float32, param_dtype=torch.float32)
+    tree = numpy_lm_params(config, LM_SEED)
+    tokens = np.random.default_rng(1).integers(0, config.vocab_size, (2, 12))
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        model = build_model(config, device=dev)
+        params = model.load_params(
+            interop.lm_params_from_numpy(tree, config, device=dev))
+        with torch.inference_mode():
+            logits, cache = model.prefill(
+                params, {"tokens": torch.as_tensor(tokens[:, :8],
+                                                   device=dev)}, max_len=12)
+            out = [logits.cpu()]
+            for i in range(8, 12):
+                logits, cache = model.decode_step(
+                    params, torch.as_tensor(tokens[:, i:i + 1], device=dev),
+                    cache)
+                out.append(logits.cpu())
+        outs[dev] = out
+    worst = 0.0
+    for a, b in zip(outs[DEVICE], outs["cpu"]):
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=LM_CPU_TOL, rtol=LM_CPU_TOL) or \
+                not torch.equal(a.argmax(-1), b.argmax(-1)):
+            raise AssertionError(f"LM card against CPU: max |diff| "
+                                 f"{float((a - b).abs().max())}")
+    return {"config": "smoke float32", "steps": len(outs["cpu"]),
+            "max_abs_diff": worst, "tol": LM_CPU_TOL}
+
+
+def lm_two_layers(config) -> dict:
+    """``config`` at 2 layers, full width, weights drawn on the card:
+    the prefill/decode consistency check, and bfloat16 against float32
+    logits of the same weights (``LM_BF16_REL_RMS``)."""
+    c2 = config.replace(n_layers=LM_CONSISTENCY["layers"])
+    model = build_model(c2, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+    consistency = lm_consistency(model, params, c2)
+    if consistency["excess"] > 0:
+        raise AssertionError(f"LM prefill/decode consistency at "
+                             f"{c2.n_layers} layers: {consistency}")
+    c32 = c2.replace(dtype=torch.float32, param_dtype=torch.float32)
+    model32 = build_model(c32, device=DEVICE)
+    params32 = model32.load_params(params)
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, config.vocab_size, (2, 64)), device=DEVICE)
+    with torch.inference_mode():
+        a, _ = model.prefill(params, {"tokens": tokens})
+        b, _ = model32.prefill(params32, {"tokens": tokens})
+    a, b = a.float(), b.float()
+    rel = float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+    if not rel <= LM_BF16_REL_RMS:
+        raise AssertionError(f"LM bfloat16 against float32: relative rms "
+                             f"{rel} > {LM_BF16_REL_RMS}")
+    return {"layers": c2.n_layers, "consistency": consistency,
+            "bf16_vs_f32": {"rel_rms": rel, "bound": LM_BF16_REL_RMS,
+                            "max_abs_diff": float((a - b).abs().max())}}
+
+
+def lm_cross_checks(params, config, tokens) -> tuple:
+    """K5 and K4 on the LM path's own tensors: layer 0's ``q, k, v`` of
+    ``tokens`` against the path's ``attend_chunked`` (run in float32 from
+    the same bfloat16 values: the function K5 computes; the path's own
+    bfloat16 run rounds P to bfloat16 before P·V, and its error against
+    that float32 run is reported beside), within ``FLASH_TOL``; and
+    ``rmsnorm_rows`` against the path's ``apply_norm`` on the residual
+    stream after layer 0 (layer 1's ``ln_attn``), within ``RMS_TOL``.
+    Returns the errors and the run with the kernels' launches."""
+    bf16 = config.dtype
+    t = tokens.shape[1]
+    unit = params["backbone"]["unit"][0]
+    layer0, layer1 = lm_tfm._layer(unit, 0), lm_tfm._layer(unit, 1)
+    chunks = {"q_chunk": config.attn_chunk_q,
+              "kv_chunk": config.attn_chunk_kv}
+    with torch.inference_mode():
+        x = params["embed"]["tok_embed"][tokens].to(bf16)
+        h = lm_common.apply_norm(x, layer0["ln_attn"], config)
+        q, k, v = lm_attn._project_qkv(layer0["attn"], h, config)
+        pos = torch.arange(t, device=DEVICE)
+        cos, sin = lm_common.rope_angles(pos, config.hd, config.rope_theta)
+        q, k = lm_common.apply_rope(q, cos, sin), lm_common.apply_rope(
+            k, cos, sin)
+        ctx = lm_tfm.BlockCtx(config, "train", pos, 0)
+        x1, _, _ = lm_tfm._apply_attn_mlp(layer0, x, ctx, None)
+        path_f32 = lm_attn.attend_chunked(
+            q.float(), k.float(), v.float(), causal=True, **chunks).to(bf16)
+        path_bf16 = lm_attn.attend_chunked(q, k, v, causal=True, **chunks)
+        norm = lm_common.apply_norm(x1, layer1["ln_attn"], config)
+        heads = [a.transpose(1, 2).contiguous() for a in (q, k, v)]
+        flash, run = path_run("lm_crosscheck", lambda: (
+            flash_kernel.flash_mha(*heads, causal=True).transpose(1, 2),
+            rms_kernel.rmsnorm_rows(x1.reshape(-1, config.d_model),
+                                    layer1["ln_attn"]["scale"])))
+    flash, rms = flash
+    if run["launches"]["flash_mha"] != 1 or \
+            run["launches"]["rmsnorm_rows"] != 1:
+        raise AssertionError(f"LM cross-checks: {run['launches']}")
+    attn_err = float_err(flash, path_f32, FLASH_TOL[bf16])
+    check_close("flash_mha against the LM path's attend_chunked", attn_err)
+    norm_err = float_err(rms.reshape(norm.shape), norm, RMS_TOL[bf16])
+    check_close("rmsnorm_rows against the LM path's apply_norm", norm_err)
+    return {"flash_mha_vs_attend_chunked": {
+                "shape": list(q.shape), **attn_err,
+                "path_bf16_vs_f32": float_err(path_bf16, path_f32,
+                                              FLASH_TOL[bf16]),
+                "flash_vs_path_bf16": float_err(flash, path_bf16,
+                                                FLASH_TOL[bf16])},
+            "rmsnorm_rows_vs_apply_norm": {"shape": list(x1.shape),
+                                           **norm_err}}, run
+
+
+def phase_lm(card: str) -> list:
+    """The LM serving path at ``LM_ARCH``'s full width and depth:
+    ``BatchedServer.serve`` of ``LM_PROMPTS`` on ``LM_SLOTS`` slots (the
+    path run, with every kernel count 0 before it: it launches none of the
+    port's kernels, as the reference's models call none), each request
+    served alone (bit for bit), the prefill of the longest prompt and a
+    decode step timed beside their bounds, a decode step under
+    ``torch.profiler``, the peak memory; the consistency checks at 40
+    layers (printed) and 2 (a check), bfloat16 against float32, the card
+    against CPU tensors, and K4/K5 on the path's own tensors.  Returns
+    the runs whose launches the kernels line sums."""
+    t_phase = time.perf_counter()
+    config = get_arch(LM_ARCH).config
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = BatchedServer(config, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                           rng_seed=LM_SEED, device=DEVICE)
+    sync()
+    build_s = time.perf_counter() - t0
+    model, params = server.model, server.params
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, config.vocab_size, n).astype(np.int32)
+               for n in LM_PROMPTS]
+
+    def requests(ids):
+        return [Request(rid=i, prompt=prompts[i], max_new_tokens=LM_MAX_NEW)
+                for i in ids]
+
+    reqs = requests(range(len(prompts)))
+    served, run = path_run("lm_serve", lambda: server.serve(reqs))
+    if any(run["launches"].values()):
+        raise AssertionError(f"the LM path launched kernels: "
+                             f"{run['launches']}")
+    if sorted(served) != list(range(len(prompts))) or not all(
+            r.done and len(served[r.rid]) == LM_MAX_NEW for r in reqs):
+        raise AssertionError(f"LM serve: {served}")
+    generated = sum(len(v) for v in served.values())
+    # check 1: every request's tokens equal the same request served alone
+    alone = {}
+    for i in range(len(prompts)):
+        alone.update(server.serve(requests([i])))
+    if alone != served:
+        raise AssertionError(f"LM serve: batched {served} != alone {alone}")
+    # the longest prompt's prefill, then a decode step against its cache
+    # (the step writes position 4096 of the same cache every call)
+    tokens = torch.as_tensor(prompts[0], dtype=torch.int64,
+                             device=DEVICE)[None]
+    with torch.inference_mode():
+        prefill_wall, prefill_ms, (logits, cache) = lm_events_ms(
+            lambda: model.prefill(params, {"tokens": tokens},
+                                  max_len=LM_MAX_LEN), LM_PREFILL_REPS)
+        last = logits[0, -1].argmax().view(1, 1)
+
+        def decode():
+            return model.decode_step(params, last, cache)
+
+        decode_wall, decode_ms, _ = lm_events_ms(decode, LM_DECODE_REPS)
+        decode_trace = device_idle(decode)
+    peak = torch.cuda.max_memory_allocated()
+    consistency40 = lm_consistency(model, params, config)
+    cross, cross_run = lm_cross_checks(params, config, tokens)
+    del server, model, params, cache, logits, last
+    torch.cuda.empty_cache()
+    two = lm_two_layers(config)
+    torch.cuda.empty_cache()
+    cpu = lm_card_vs_cpu()
+    torch.cuda.empty_cache()
+    bounds = lm_bounds(config, n_params, LM_PROMPTS[0], LM_PROMPTS[0] + 1)
+    seconds = time.perf_counter() - t_phase
+    run.update({
+        "phase": "lm_path", "nvidia_smi": card, "arch": LM_ARCH,
+        "n_layers": config.n_layers, "d_model": config.d_model,
+        "n_params": n_params, "dtype": str(config.param_dtype),
+        "build_s": build_s,
+        "requests": {"prompts": list(LM_PROMPTS), "max_new_tokens": LM_MAX_NEW,
+                     "slots": LM_SLOTS, "max_len": LM_MAX_LEN},
+        "served_tokens": generated, "serve_wall_s": run["wall_s"],
+        "tokens_per_s": generated / run["wall_s"],
+        "alone_equals_batched": True,
+        "prefill": {"tokens": LM_PROMPTS[0], "wall_ms": prefill_wall,
+                    "device_ms": prefill_ms,
+                    "bound_ms": bounds["prefill_bound_ms"],
+                    "bound_ms_every_block":
+                        bounds["prefill_bound_ms_every_block"],
+                    "ops": bounds["prefill_ops"]},
+        "decode_step": {"cache_len": LM_PROMPTS[0], "wall_ms": decode_wall,
+                        "device_ms": decode_ms,
+                        "bound_ms": bounds["decode_bound_ms"],
+                        "weights_bound_ms": bounds["decode_weights_bound_ms"],
+                        "bytes": bounds["decode_bytes"],
+                        "profiled": decode_trace},
+        "kv_bytes_a_token": bounds["kv_bytes_a_token"],
+        "peak_bytes": peak,
+        "consistency_40_layers": consistency40, "two_layers": two,
+        "card_vs_cpu": cpu, "cross_checks": cross,
+        "seconds": seconds, "budget_s": LM_BUDGET_S,
+        "within_budget": seconds <= LM_BUDGET_S})
+    emit(run)
+    return [run, cross_run]
+
+
 def build_all() -> dict:
     """Build every kernel library, one ``nvcc`` each, all at once."""
     loaders = [module.load_library for _, module in LIBRARIES]
@@ -3522,6 +3879,11 @@ def main(argv=None) -> int:
     float_runs = [rms_run, flash_run]
     emit({"phase": "float_kernels_done",
           "seconds": time.perf_counter() - t0})
+
+    # 2c. the LM serving path at mistral-nemo-12b's full width and depth
+    # (its weights are freed before the graphs are made); its K4/K5
+    # cross-checks' launches join the kernels line
+    float_runs += phase_lm(card)
 
     # graphs: the sizes of the paper's soc-LiveJournal1 and delaunay_n24
     # for the main and frontier paths, smaller ones for the async path

@@ -38,7 +38,7 @@ Alg.-1-verbatim and rejects it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -53,6 +53,15 @@ VARIANTS = ("C-Syn", "C-1", "C-2", "C-m", "C-11mm", "C-1m1m")
 # C-m's effective order: the paper uses m = 1024; log2(1024) = 10 jump
 # rounds after the 2-order edge sweep cover the same mapping depth.
 _CM_JUMP_ROUNDS = 10
+
+
+class ContourState(NamedTuple):
+    """The reference's loop state, as tensors: labels, the int32
+    iteration counter and the bool flag.  The port's loop keeps ``it``
+    and ``done`` in the words of ``converged.loop_state``."""
+    L: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor
 
 
 def _schedule(variant: str, warmup: int, async_compress: int, relax,
@@ -337,3 +346,14 @@ def contour_labels_batched(
     iterations = state.lanes[:, cv.IT].clone()
     return (labels, iterations, state.lanes[:, cv.DONE].bool(),
             iterations.to(torch.float32) * m)
+
+
+def contour(graph, **kw):
+    """Convenience wrapper over :func:`contour_labels`."""
+    return contour_labels(graph.src, graph.dst, graph.n_vertices, **kw)
+
+
+def connected_components(graph, variant: str = "C-2") -> torch.Tensor:
+    """Min-vertex-id component labels (prefer ``repro_torch.solve``)."""
+    L, _, _, _ = contour(graph, variant=variant)
+    return L

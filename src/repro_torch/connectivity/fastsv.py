@@ -79,3 +79,8 @@ def fastsv_labels(src: torch.Tensor, dst: torch.Tensor, n_vertices: int,
     it, converged = cv.loop_result(state)
     # the converged gf is a star forest rooted at the component minima
     return gf, it, converged
+
+
+def fastsv(graph, max_iters: int = 256):
+    return fastsv_labels(graph.src, graph.dst, graph.n_vertices,
+                         max_iters=max_iters)

@@ -50,3 +50,8 @@ def label_propagation_labels(src: torch.Tensor, dst: torch.Tensor,
                                       src.dtype), state, max_iters)
     it, converged = cv.loop_result(state)
     return L, it, converged
+
+
+def label_propagation(graph, max_iters: int = 100_000):
+    return label_propagation_labels(graph.src, graph.dst, graph.n_vertices,
+                                    max_iters=max_iters)

@@ -36,3 +36,11 @@ def rem_labels(src: torch.Tensor, dst: torch.Tensor, n_vertices: int,
     return (torch.as_tensor(labels).to(device=device, dtype=src.dtype),
             torch.tensor(1, dtype=torch.int32, device=device),
             torch.tensor(True, device=device))
+
+
+def rem(graph, init_labels: Optional[torch.Tensor] = None):
+    return rem_labels(graph.src, graph.dst, graph.n_vertices,
+                      init_labels=init_labels)
+
+
+__all__ = ["rem_union_find", "rem_labels", "rem"]

@@ -7,6 +7,12 @@ else, so no object of another framework crosses into the port.
 :func:`stream_from_state` carries a stream across: it rebuilds a
 streaming engine from a stream's state dict.  :func:`tensor_from_numpy`
 carries the float inputs of the attention and normalisation kernels.
+
+The LM's weights are the other thing that crosses:
+:func:`lm_params_from_numpy` takes the reference's parameter pytree
+(nested dicts and lists of float32 numpy arrays) and returns the port's,
+and :func:`lm_cache_from_numpy` a reference prefill's cache, so that a
+decode can start from it.
 """
 from __future__ import annotations
 
@@ -17,6 +23,10 @@ from repro_torch.connectivity.result import ComponentResult
 from repro_torch.connectivity.solve import make_result
 from repro_torch.connectivity.streaming import StreamingConnectivity
 from repro_torch.graphs.structs import DeviceLike, Graph, resolve_device
+from repro_torch.models import common as cm
+from repro_torch.models.attention import KVCache
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.model import check_tree, lm_param_specs
 
 _SCALARS = (np.ndarray, np.generic, bool, int, float)
 # element types tensor_from_numpy makes, by name
@@ -93,3 +103,56 @@ def stream_from_state(state: dict,
                                 store_edges=bool(state["store_edges"]),
                                 device=device)
     return eng.load_state_dict(state)
+
+
+def _float_tensor(a, dtype: torch.dtype, device: torch.device,
+                  path: str) -> torch.Tensor:
+    # float32 -> bfloat16 rounds to nearest even, as tensor_from_numpy does
+    a = _require_numpy(path, a)
+    if a.dtype != np.float32:
+        raise TypeError(f"{path} must be a float32 array, got {a.dtype}")
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(tree, config: ModelConfig,
+                         device: DeviceLike = None):
+    """The port's parameter tree from the reference's, each leaf passed
+    through ``np.asarray(p, np.float32)`` (exact for bfloat16), as
+    tensors on ``device`` in ``config.param_dtype``.
+
+    Each leaf's path and shape is checked against the model's
+    ``param_specs()``; a missing, extra or misshapen leaf raises
+    ``ValueError``.  The tree goes to ``LM.load_params`` or
+    ``BatchedServer(config, params=...)``.
+    """
+    check_tree(tree, lm_param_specs(config))
+    dev = resolve_device(device)
+    return cm.tree_map_with_path(
+        lambda path, a: _float_tensor(a, config.param_dtype, dev, path),
+        tree, lambda x: isinstance(x, np.ndarray))
+
+
+def lm_cache_from_numpy(cache, config: ModelConfig,
+                        device: DeviceLike = None):
+    """The port's cache from a reference prefill's (``{"prefix": [...],
+    "unit": [KVCache, ...]}``, its ``k`` and ``v`` passed through
+    ``np.asarray(c, np.float32)``, its ``length`` through ``np.asarray``):
+    ``k``/``v`` in ``config.dtype`` on ``device``; each stacked ``length``
+    (one per layer, all equal) becomes the port's one Python int."""
+    dev = resolve_device(device)
+
+    def kv(c, what: str) -> KVCache:
+        k, v, length = c
+        lengths = np.unique(_require_numpy(f"{what}.length", length,
+                                           scalar=True))
+        if lengths.size != 1:
+            raise ValueError(f"{what}: the layers' lengths differ: "
+                             f"{lengths.tolist()}")
+        return KVCache(k=_float_tensor(k, config.dtype, dev, f"{what}.k"),
+                       v=_float_tensor(v, config.dtype, dev, f"{what}.v"),
+                       length=int(lengths[0]))
+
+    return {"prefix": [kv(c, f"prefix.{i}")
+                       for i, c in enumerate(cache["prefix"])],
+            "unit": [kv(c, f"unit.{i}")
+                     for i, c in enumerate(cache["unit"])]}

@@ -18,7 +18,8 @@ from repro_torch.serving.engine import (ConnectivityEngine, DeadlineExceeded,
                                         EngineClosed, IngestAck)
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.primitives import (BoundedQueue, QueueFull,
-                                            ServeRequest, pow2_bucket)
+                                            ServeRequest, SlotPool,
+                                            pow2_bucket)
 
 __all__ = [
     "BoundedQueue",
@@ -30,5 +31,6 @@ __all__ = [
     "QueueFull",
     "ServeRequest",
     "ServingMetrics",
+    "SlotPool",
     "pow2_bucket",
 ]

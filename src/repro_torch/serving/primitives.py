@@ -1,8 +1,8 @@
 """Generic request/queue primitives of the serving layer.
 
 The port's copy of ``repro.serving.primitives``, for its connectivity
-engine (``repro_torch.serving.engine``).  The reference's ``SlotPool``
-serves its LM continuous-batching server, which the port does not have.
+engine (``repro_torch.serving.engine``) and its LM server
+(``repro_torch.launch.serve``).
 
 * :class:`BoundedQueue` — thread-safe FIFO with **reject-not-block**
   admission: a full queue raises :class:`QueueFull` carrying a
@@ -11,6 +11,9 @@ serves its LM continuous-batching server, which the port does not have.
   not wedge every client thread).  Consumers drain in batches
   (``drain``/``get_batch``) so a coalescer takes everything pending in
   one lock acquisition.
+
+* :class:`SlotPool` — a fixed pool of integer slots handed out lowest
+  first: the LM server's continuous-batching resource model.
 
 * :class:`ServeRequest` — payload + :class:`concurrent.futures.Future`
   + submit timestamp + optional deadline.  The future carries the
@@ -119,6 +122,42 @@ class BoundedQueue:
                         return []
             k = min(max_items, len(self._items))
             return [self._items.popleft() for _ in range(k)]
+
+
+class SlotPool:
+    """Fixed pool of integer slots (continuous-batching resource model).
+
+    ``acquire`` hands out the lowest free slot id or None; ``release``
+    returns it.  Thread-safe, though the LM server drives it from one
+    thread.
+    """
+
+    def __init__(self, n_slots: int):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        self.n_slots = n_slots
+        self._free = list(range(n_slots - 1, -1, -1))  # pop() -> lowest id
+        self._lock = threading.Lock()
+
+    def acquire(self) -> Optional[int]:
+        with self._lock:
+            return self._free.pop() if self._free else None
+
+    def release(self, slot: int) -> None:
+        with self._lock:
+            if not 0 <= slot < self.n_slots or slot in self._free:
+                raise ValueError(f"bad release of slot {slot}")
+            self._free.append(slot)
+            self._free.sort(reverse=True)
+
+    @property
+    def n_free(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    @property
+    def n_busy(self) -> int:
+        return self.n_slots - self.n_free
 
 
 @dataclasses.dataclass

@@ -1681,3 +1681,91 @@ def test_mesh_stream_on_the_card_equals_the_torch_backend(nccl_mesh):
                 assert torch.equal(got[key].cpu(), value.cpu()), key
             else:
                 assert got[key] == value, key
+
+
+# -- the LM serving path (repro_torch.models, launch.serve) -----------------
+
+def _numpy_lm_params(config, seed: int):
+    """Seeded float32 numpy weights in the reference's layout (ones and
+    zeros where the specs say), carried onto a device by
+    ``interop.lm_params_from_numpy``."""
+    from repro_torch.models import common as cm
+    from repro_torch.models.model import lm_param_specs
+
+    rng = np.random.default_rng(seed)
+
+    def draw(spec):
+        if spec.init in ("zeros", "ones"):
+            return np.full(spec.shape, spec.init == "ones", np.float32)
+        return (rng.standard_normal(spec.shape) * spec.scale).astype(
+            np.float32)
+
+    return cm.tree_map(draw, lm_param_specs(config), cm.is_spec)
+
+
+@pytest.mark.parametrize("name", ["mistral-nemo-12b", "llava-next-34b",
+                                  "stablelm-1.6b", "olmo-1b"])
+def test_lm_on_the_card_matches_the_cpu(cuda, name):
+    """The same carried-across float32 weights on the card and on CPU
+    tensors: prefill and decode logits within 1e-4, greedy tokens equal,
+    and the server's tokens equal."""
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import build_model
+
+    config = get_arch(name).smoke_config().replace(
+        dtype=torch.float32, param_dtype=torch.float32)
+    tree = _numpy_lm_params(config, 0)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, config.vocab_size, (2, 12))
+    runs, served = {}, {}
+    for dev in ("cpu", cuda):
+        model = build_model(config, device=dev)
+        params = model.load_params(
+            interop.lm_params_from_numpy(tree, config, device=dev))
+        batch = {"tokens": torch.as_tensor(tokens[:, :8], device=dev)}
+        if config.frontend == "patch_stub":
+            batch["patch_embeds"] = torch.ones(
+                (2, config.n_frontend_tokens, config.d_model), device=dev)
+        logits, cache = model.prefill(params, batch, max_len=12)
+        out = [logits.cpu()]
+        for i in range(8, 12):
+            logits, cache = model.decode_step(
+                params, torch.as_tensor(tokens[:, i:i + 1], device=dev),
+                cache)
+            out.append(logits.cpu())
+        runs[str(dev)] = out
+        server = BatchedServer(config, params, n_slots=2, max_len=16,
+                               device=dev)
+        served[str(dev)] = server.serve([
+            Request(rid=i, prompt=tokens[i % 2, :4 + i], max_new_tokens=3)
+            for i in range(3)])
+    for a, b in zip(runs["cpu"], runs[str(cuda)]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+    assert served["cpu"] == served[str(cuda)]
+
+
+@pytest.mark.parametrize("t", [1024, 4096])
+def test_attend_chunked_against_flash_mha(cuda, t):
+    """The LM path's ``attend_chunked`` (float32, from the bfloat16 inputs)
+    against K5 on the same bfloat16 ``q, k, v`` at mistral-nemo-12b's
+    heads, within ``chip_smoke.FLASH_TOL[bf16]``: every element within
+    4e-3 + 1e-2 |b| and rms(a - b) <= 5e-4 rms(b)."""
+    from repro_torch.models.attention import attend_chunked
+
+    gen_ = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, t, 32, 128), generator=gen_, device=cuda).bfloat16()
+    k = torch.randn((1, t, 8, 128), generator=gen_, device=cuda).bfloat16()
+    v = torch.randn((1, t, 8, 128), generator=gen_, device=cuda).bfloat16()
+    want = attend_chunked(q.float(), k.float(), v.float(), causal=True,
+                          q_chunk=512, kv_chunk=1024).bfloat16().float()
+    before = flash_mha.launches
+    got = flash_mha(*(x.transpose(1, 2).contiguous() for x in (q, k, v)),
+                    causal=True).transpose(1, 2).float()
+    assert flash_mha.launches == before + 1
+    diff = (got - want).abs()
+    assert float((diff - 4e-3 - 1e-2 * want.abs()).max()) <= 0
+    assert float(diff.square().mean().sqrt()) <= \
+        5e-4 * float(want.square().mean().sqrt())

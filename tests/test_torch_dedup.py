@@ -12,7 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.data import dedup as ref_dedup  # noqa: E402
-from repro.data.pipeline import make_corpus  # noqa: E402
+from repro_torch.data import make_corpus  # noqa: E402
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import dedup  # noqa: E402

@@ -50,7 +50,10 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                    "connectivity.planner.autotune",
                    "connectivity.planner.costmodel",
                    "connectivity.distributed", "runtime.mesh",
-                   "runtime.elastic"):
+                   "runtime.elastic", "data.pipeline", "models.common",
+                   "models.attention", "models.mlp", "models.transformer",
+                   "models.model", "configs.base",
+                   "configs.mistral_nemo_12b", "launch.serve"):
         assert f"repro_torch.{module}" in modules
     code = (
         "import importlib, sys\n"
