@@ -111,7 +111,23 @@ against scipy's connected components:
   against CPU tensors, and ``flash_mha``/``rmsnorm_rows`` against the
   path's ``attend_chunked``/``apply_norm`` on its own tensors (the path
   itself launches none of the port's kernels, as the reference's models
-  call none).  Its weights are freed before the graphs are made.
+  call none).  Its weights are freed before the next phase;
+* then the other LM families (``lm_families``), one model at a time at
+  full width, each freed before the next: deepseek-moe-16b (28 layers,
+  16,375,728,128 bfloat16 weights), arctic-480b on 2 of its 35 layers
+  (~27.7 B bfloat16 weights; 35 do not fit the card), xlstm-125m,
+  zamba2-2.7b and seamless-m4t-large-v2 (float32 weights, bfloat16
+  compute), served as nemo is (prompts of 4096, 1024, 512 and 37
+  tokens; arctic 1024 and 37; the encoder-decoder's stub frames), each
+  request against it served alone, the longest prefill and a decode
+  step timed beside bounds that count the experts a token meets, no
+  attention in recurrent layers and the encoder's frames (an MoE decode
+  also with the activated experts only), a decode step under
+  ``torch.profiler``, the MoE drops of the longest prefill, the
+  prefill/decode consistency in float32 at 2 layers (4 for xlstm, 6 for
+  zamba2, 2 + 2 for seamless, 1 for arctic; bfloat16 printed), and the
+  smoke config on the card against CPU tensors.  None of them launches
+  a kernel of the port.  The graphs are made after them.
 
 Every phase prints one JSON line with its seconds; any failed check
 raises and the script exits non-zero.  The lines before the last are the
@@ -185,6 +201,7 @@ from repro_torch.kernels.fused_rmsnorm import \
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import common as lm_common  # noqa: E402
+from repro_torch.models import mlp as lm_mlp  # noqa: E402
 from repro_torch.models import transformer as lm_tfm  # noqa: E402
 from repro_torch.models.model import build_model, lm_param_specs  # noqa: E402
 from repro_torch.runtime import (FaultInjector, Mesh,  # noqa: E402
@@ -328,6 +345,23 @@ LM_PREFILL_REPS = 3
 LM_DECODE_REPS = 20
 # the time the LM phase is meant to take at most (reported)
 LM_BUDGET_S = 120.0
+# the LM families beside the decoders (lm_families, right after lm_path):
+# (arch, layers kept or None for all, prompts), each at full width,
+# served as lm_path serves nemo, one model at a time; arctic-480b keeps 2
+# of its 35 layers (35 are 953.7 GB in bfloat16, the card holds 80)
+LM_FAMILIES = (("deepseek-moe-16b", None, LM_PROMPTS),
+               ("arctic-480b", 2, (1024, 37)),
+               ("xlstm-125m", None, LM_PROMPTS),
+               ("zamba2-2.7b", None, LM_PROMPTS),
+               ("seamless-m4t-large-v2", None, LM_PROMPTS))
+# the time the families' phase is meant to take at most (reported)
+LM_FAMILIES_BUDGET_S = 240.0
+# the families' consistency check runs in float32 (bfloat16 is printed
+# beside it: the reference's own bfloat16 misses 2e-2 at full width on
+# xlstm-125m at 4 layers, 0.082, and zamba2-2.7b at 6, 0.0625, where its
+# float32 gives 2.2e-5 and 1.2e-5; PERF.md); its weights, drawn anew,
+# at most this many bytes (else one repetition of the unit)
+LM_F32_CHECK_BYTES = 60e9
 # kernel against plain version in float32, (atol, rtol, rms_rel) by working
 # type: every element within |a - b| <= atol + rtol * |b|, and the whole
 # output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
@@ -3532,49 +3566,146 @@ def lm_events_ms(fn, reps: int) -> tuple:
             sum(a.elapsed_time(b) for a, b in pairs) / reps, out)
 
 
-def lm_bounds(config, n_params: int, prompt: int, cache_len: int) -> dict:
-    """The least times of a prefill of ``prompt`` tokens (its products at
-    the bf16 tensor-core rate: 2 operations a weight a token, the LM head
-    at the last position only, attention's two products causal and, as
-    ``attend_chunked`` computes them, over every key block) and of a
-    decode step against ``cache_len`` positions (every weight but the
-    embedding table read once, and the valid K/V, at the HBM rate)."""
+def lm_bounds(model, prompt: int, cache, kept=None) -> dict:
+    """The least times of a prefill of ``prompt`` tokens and of a decode
+    step against its ``cache`` (``prompt + 1`` valid positions), for
+    every family.
+
+    Prefill: its products at the bf16 tensor-core rate, 2 operations a
+    weight a token it meets (a shared block's weights once a use; an
+    encoder's and the cross K/V projections' once a frame, the stub's
+    ``max(prompt // 2, 4)``; the LM head at the last position only; an
+    MoE layer's experts only for the assignments it keeps, ``kept``
+    summed over the layers, or every token's top-k), and attention's two
+    products in every attention layer (causal halves; the encoder's and
+    the cross-attention's whole), none in a recurrent layer (the GLA and
+    sLSTM recurrences' own products, under 0.1% of the weights' at these
+    widths, are not counted).  Decode: at the HBM rate, every weight the
+    step reads once (not the embedding table, the frontend projections,
+    the encoder or the cross K/V projections), the valid K/V, the cross
+    K/V, and each recurrent state read and written; for an MoE model also
+    with only the activated experts (top-k a layer) read."""
+    config = model.config
     d, vp, hd = config.d_model, config.padded_vocab, config.hd
     size = torch.finfo(config.param_dtype).bits // 8
-    table = vp * d
-    body = n_params - table * (1 if config.tie_embeddings else 2)
-    weight_ops = 2 * prompt * body + 2 * d * vp
-    attn_ops = 4 * prompt * prompt * hd * config.n_heads * config.n_layers
-    kv_token = 2 * config.n_layers * config.n_kv_heads * hd * \
-        (torch.finfo(config.dtype).bits // 8)
-    weight_bytes = (body + table) * size
-    return {
-        "prefill_ops": weight_ops + attn_ops // 2,
-        "prefill_bound_ms": (weight_ops + attn_ops // 2)
-        / BF16_TENSOR_OPS_PER_S * 1e3,
-        "prefill_bound_ms_every_block": (weight_ops + attn_ops)
-        / BF16_TENSOR_OPS_PER_S * 1e3,
-        "decode_bytes": weight_bytes + cache_len * kv_token,
-        "decode_bound_ms": (weight_bytes + cache_len * kv_token)
-        / HBM_BYTES_PER_S * 1e3,
-        "decode_weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
-        "kv_bytes_a_token": kv_token}
+    count = {path: int(np.prod(spec.shape)) for path, spec in
+             lm_common.tree_leaves_with_path(model.param_specs(),
+                                             lm_common.is_spec)}
+
+    def total(keep) -> int:
+        return sum(n for path, n in count.items() if keep(path))
+
+    def expert(path: str) -> bool:
+        return path.rsplit(".", 1)[-1] in ("w_up_e", "w_gate_e", "w_down_e")
+
+    def cross_kv(path: str) -> bool:
+        return ".cross_attn.w" in path and path[-2:] in ("wk", "wv")
+
+    frontend = total(lambda p: p in ("embed.patch_proj", "embed.frame_proj"))
+    table = count["embed.tok_embed"]
+    read = sum(count.values()) - frontend - (
+        0 if config.tie_embeddings else table)
+    pair_ops = 4 * hd * config.n_heads        # both products, a q-k pair
+    t = prompt
+    if config.family == "audio":
+        frames = max(prompt // 2, 4)
+        enc_plan, dec_plan = model.enc_plan, model.dec_plan
+        weight_ops = 2 * frames * total(
+            lambda p: p.startswith("encoder.") or p == "embed.frame_proj") \
+            + 2 * t * total(lambda p: p.startswith("decoder.")
+                            and not cross_kv(p)) \
+            + 2 * frames * total(cross_kv)
+        attn_ops = pair_ops * (enc_plan.n_repeat * frames * frames
+                               + dec_plan.n_repeat * t * frames)
+        causal_ops = pair_ops * dec_plan.n_repeat * t * t
+        read -= total(lambda p: p.startswith("encoder.") or cross_kv(p))
+    else:
+        plan = model.plan
+        n_attn = sum(b in lm_tfm._ATTN_BLOCKS for b in plan.prefix) + \
+            plan.n_repeat * (sum(b in lm_tfm._ATTN_BLOCKS for b in plan.unit)
+                             + (plan.shared in lm_tfm._ATTN_BLOCKS))
+        shared = total(lambda p: p.startswith("backbone.shared."))
+        weight_ops = 2 * t * (total(lambda p: p.startswith("backbone.")
+                                    and not expert(p)) - shared
+                              + shared * plan.n_repeat)
+        attn_ops, causal_ops = 0, pair_ops * n_attn * t * t
+        if config.n_experts:
+            n_moe = plan.n_repeat
+            per_expert = total(expert) // (n_moe * config.n_experts)
+            kept = t * config.top_k * n_moe if kept is None else kept
+            weight_ops += 2 * kept * per_expert
+            activated = read - total(expert) + \
+                config.top_k * per_expert * n_moe
+    weight_ops += 2 * d * vp                  # the LM head, last position
+    state_bytes = kv_token = 0
+    for path, leaf in lm_common.tree_leaves_with_path(
+            cache, lambda x: isinstance(x, (torch.Tensor, int))):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        nbytes = leaf.numel() * leaf.element_size()
+        name = path.rsplit(".", 1)[-1]
+        if name in ("k", "v"):                # positions: the third last
+            kv_token += nbytes // leaf.shape[-3]
+        else:                                 # cross K/V read; states r+w
+            state_bytes += nbytes * (1 if name.startswith("cross") else 2)
+    cache_bytes = (prompt + 1) * kv_token + state_bytes
+    prefill_ops = weight_ops + attn_ops + causal_ops // 2
+    out = {
+        "prefill_ops": prefill_ops,
+        "prefill_bound_ms": prefill_ops / BF16_TENSOR_OPS_PER_S * 1e3,
+        "prefill_bound_ms_every_block":
+            (weight_ops + attn_ops + causal_ops) / BF16_TENSOR_OPS_PER_S
+            * 1e3,
+        "decode_bytes": read * size + cache_bytes,
+        "decode_bound_ms": (read * size + cache_bytes) / HBM_BYTES_PER_S
+        * 1e3,
+        "decode_weights_bound_ms": read * size / HBM_BYTES_PER_S * 1e3,
+        "kv_bytes_a_token": kv_token, "state_bytes": state_bytes}
+    if config.n_experts:
+        out.update({
+            "kept_assignments": kept,
+            "decode_activated_bytes": activated * size + cache_bytes,
+            "decode_activated_bound_ms": (activated * size + cache_bytes)
+            / HBM_BYTES_PER_S * 1e3})
+    return out
+
+
+def lm_batch(config, tokens: torch.Tensor, frames=None) -> dict:
+    """A prefill batch of ``tokens`` (B, T) with the server's stub inputs:
+    ``patch_embeds`` of zeros for a ``patch_stub`` frontend and, for an
+    ``audio_stub`` one, ``frames`` or zeros at ``max(T // 2, 4)``."""
+    b, t = tokens.shape
+    batch = {"tokens": tokens}
+    if config.frontend == "patch_stub":
+        batch["patch_embeds"] = torch.zeros(
+            (b, min(config.n_frontend_tokens, t), config.d_model),
+            device=tokens.device)
+    if config.frontend == "audio_stub":
+        batch["frame_embeds"] = frames if frames is not None else \
+            torch.zeros((b, max(t // 2, 4), config.d_model),
+                        device=tokens.device)
+    return batch
 
 
 def lm_consistency(model, params, config) -> dict:
     """The reference's prefill/decode criterion (tests/test_models.py:
     71-106): prefill ``prompt`` tokens, decode the rest one at a time; the
     last step's logits against the whole sequence's prefill at its last
-    position.  ``excess`` > 0 where an element lies past atol + rtol |b|."""
+    position.  ``excess`` > 0 where an element lies past atol + rtol |b|.
+    An encoder-decoder encodes the same seeded frames in both."""
     c = LM_CONSISTENCY
     rng = np.random.default_rng(3)
     tokens = torch.as_tensor(rng.integers(0, config.vocab_size,
                                           (c["batch"], c["tokens"])),
                              device=DEVICE)
+    frames = torch.as_tensor(rng.standard_normal(
+        (c["batch"], c["tokens"] // 2, config.d_model)), dtype=torch.float32,
+        device=DEVICE)
     with torch.inference_mode():
-        full, _ = model.prefill(params, {"tokens": tokens})
+        full, _ = model.prefill(params, lm_batch(config, tokens, frames))
         logits, cache = model.prefill(
-            params, {"tokens": tokens[:, :c["prompt"]]}, max_len=c["tokens"])
+            params, lm_batch(config, tokens[:, :c["prompt"]], frames),
+            max_len=c["tokens"])
         for i in range(c["prompt"], c["tokens"]):
             logits, cache = model.decode_step(params, tokens[:, i:i + 1],
                                               cache)
@@ -3600,23 +3731,26 @@ def numpy_lm_params(config, seed: int):
     return lm_common.tree_map(draw, lm_param_specs(config), lm_common.is_spec)
 
 
-def lm_card_vs_cpu() -> dict:
-    """The smoke config of ``LM_ARCH`` in float32 on the card and on CPU
-    tensors, the same carried-across weights: prefill and 4 decode
-    steps' logits within ``LM_CPU_TOL``, greedy tokens equal."""
-    config = get_arch(LM_ARCH).smoke_config().replace(
+def lm_card_vs_cpu(arch: str = LM_ARCH) -> dict:
+    """The smoke config of ``arch`` in float32 on the card and on CPU
+    tensors, the same carried-across weights (and seeded frames for an
+    encoder-decoder): prefill and 4 decode steps' logits within
+    ``LM_CPU_TOL``, greedy tokens equal."""
+    config = get_arch(arch).smoke_config().replace(
         dtype=torch.float32, param_dtype=torch.float32)
     tree = numpy_lm_params(config, LM_SEED)
-    tokens = np.random.default_rng(1).integers(0, config.vocab_size, (2, 12))
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, config.vocab_size, (2, 12))
+    frames = rng.standard_normal((2, 6, config.d_model)).astype(np.float32)
     outs = {}
     for dev in (DEVICE, "cpu"):
         model = build_model(config, device=dev)
         params = model.load_params(
             interop.lm_params_from_numpy(tree, config, device=dev))
         with torch.inference_mode():
-            logits, cache = model.prefill(
-                params, {"tokens": torch.as_tensor(tokens[:, :8],
-                                                   device=dev)}, max_len=12)
+            logits, cache = model.prefill(params, lm_batch(
+                config, torch.as_tensor(tokens[:, :8], device=dev),
+                torch.as_tensor(frames, device=dev)), max_len=12)
             out = [logits.cpu()]
             for i in range(8, 12):
                 logits, cache = model.decode_step(
@@ -3629,9 +3763,10 @@ def lm_card_vs_cpu() -> dict:
         worst = max(worst, float((a - b).abs().max()))
         if not torch.allclose(a, b, atol=LM_CPU_TOL, rtol=LM_CPU_TOL) or \
                 not torch.equal(a.argmax(-1), b.argmax(-1)):
-            raise AssertionError(f"LM card against CPU: max |diff| "
-                                 f"{float((a - b).abs().max())}")
-    return {"config": "smoke float32", "steps": len(outs["cpu"]),
+            raise AssertionError(f"LM card against CPU ({arch}): max "
+                                 f"|diff| {float((a - b).abs().max())}")
+    return {"arch": arch, "config": "smoke float32",
+            "steps": len(outs["cpu"]),
             "max_abs_diff": worst, "tol": LM_CPU_TOL}
 
 
@@ -3776,6 +3911,7 @@ def phase_lm(card: str) -> list:
         decode_wall, decode_ms, _ = lm_events_ms(decode, LM_DECODE_REPS)
         decode_trace = device_idle(decode)
     peak = torch.cuda.max_memory_allocated()
+    bounds = lm_bounds(model, LM_PROMPTS[0], cache)
     consistency40 = lm_consistency(model, params, config)
     cross, cross_run = lm_cross_checks(params, config, tokens)
     del server, model, params, cache, logits, last
@@ -3784,7 +3920,6 @@ def phase_lm(card: str) -> list:
     torch.cuda.empty_cache()
     cpu = lm_card_vs_cpu()
     torch.cuda.empty_cache()
-    bounds = lm_bounds(config, n_params, LM_PROMPTS[0], LM_PROMPTS[0] + 1)
     seconds = time.perf_counter() - t_phase
     run.update({
         "phase": "lm_path", "nvidia_smi": card, "arch": LM_ARCH,
@@ -3816,6 +3951,218 @@ def phase_lm(card: str) -> list:
         "within_budget": seconds <= LM_BUDGET_S})
     emit(run)
     return [run, cross_run]
+
+
+def moe_drops(model, params, batch: dict, max_len: int) -> dict:
+    """The top-k assignments each MoE layer of a prefill of ``batch``
+    drops past capacity: each layer's router and dispatch run once more
+    on its input (``mlp.route``), outside every timed call."""
+    layers = []
+    inner = lm_mlp.moe_apply
+
+    def counting(p, x, config):
+        xf = x.reshape(-1, config.d_model)
+        keep = lm_mlp.route(p, xf, config)[4]
+        layers.append((int((~keep).sum()), keep.numel(), keep.shape[0]))
+        return inner(p, x, config)
+
+    lm_mlp.moe_apply = counting
+    try:
+        with torch.inference_mode():
+            model.prefill(params, batch, max_len=max_len)
+    finally:
+        lm_mlp.moe_apply = inner
+    config = model.config
+    tokens = batch["tokens"].numel()
+    groups = lm_mlp.moe_groups(tokens, config)
+    dropped = sum(n for n, _, _ in layers)
+    assigned = sum(n for _, n, _ in layers)
+    return {"tokens": tokens, "moe_layers": len(layers), "groups": groups,
+            "capacity": lm_mlp._capacity(tokens // groups, config),
+            "assignments": assigned, "dropped": dropped,
+            "kept": assigned - dropped,
+            "dropped_by_layer": [n for n, _, _ in layers]}
+
+
+def lm_cut(model, params):
+    """``model``'s config and weights cut to ``LM_CONSISTENCY["layers"]``
+    layers, or to the fewest whole repetitions of its unit past its
+    prefix that reach them (xlstm: 4, 3 mLSTM and an sLSTM; zamba2: 6
+    Mamba2 and one use of the shared block), an encoder-decoder to that
+    many of each; the weights as views of ``params``.  MoE at
+    ``capacity_factor=8`` (drop-free, where the reference's own test
+    holds the criterion)."""
+    config, n = model.config, LM_CONSISTENCY["layers"]
+
+    def cut(tree, reps):
+        return {**tree, "unit": [lm_common.tree_map(
+            lambda t: t[:reps], u, torch.is_tensor) for u in tree["unit"]]}
+
+    if config.family == "audio":
+        return (config.replace(n_enc_layers=n, n_dec_layers=n),
+                {**params, "encoder": cut(params["encoder"], n),
+                 "decoder": cut(params["decoder"], n)})
+    plan = model.plan
+    reps = max(1, -(-(n - len(plan.prefix)) // len(plan.unit)))
+    c = config.replace(n_layers=len(plan.prefix) + reps * len(plan.unit))
+    if config.n_experts:
+        c = c.replace(capacity_factor=8.0)
+    return c, {**params, "backbone": cut(params["backbone"], reps)}
+
+
+def lm_depth(config):
+    """A config's layers, an encoder-decoder's as [encoder, decoder]."""
+    if config.family == "audio":
+        return [config.n_enc_layers, config.n_dec_layers]
+    return config.n_layers
+
+
+def lm_family(card: str, arch: str, layers, prompts) -> dict:
+    """One model of ``LM_FAMILIES`` at full width: built with seeded
+    weights drawn on the card, ``BatchedServer.serve`` of ``prompts`` on
+    ``LM_SLOTS`` slots (every launch count 0 before, none after: the path
+    launches none of the port's kernels), each request served alone, the
+    longest prompt's prefill and a decode step against its cache timed
+    beside their bounds (CUDA events), the step's device events and idle
+    share, the peak memory and the weights' bytes; the MoE drops of that
+    prefill; the prefill/decode consistency at the depth of
+    :func:`lm_cut`, held in float32 (weights drawn anew once the served
+    model is freed) and read in bfloat16 on the served weights' views;
+    the smoke config on the card against CPU tensors.
+    The model's weights and caches are freed before it returns."""
+    t_model = time.perf_counter()
+    config = get_arch(arch).config
+    if layers is not None:
+        config = config.replace(n_layers=layers)
+    max_len = max(prompts) + LM_MAX_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = BatchedServer(config, n_slots=LM_SLOTS, max_len=max_len,
+                           rng_seed=LM_SEED, device=DEVICE)
+    sync()
+    build_s = time.perf_counter() - t0
+    model, params = server.model, server.params
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    rng = np.random.default_rng(0)
+    texts = [rng.integers(0, config.vocab_size, n).astype(np.int32)
+             for n in prompts]
+
+    def requests(ids):
+        return [Request(rid=i, prompt=texts[i], max_new_tokens=LM_MAX_NEW)
+                for i in ids]
+
+    reqs = requests(range(len(texts)))
+    served, run = path_run(f"lm_family {arch}", lambda: server.serve(reqs))
+    if any(run["launches"].values()):
+        raise AssertionError(f"{arch}: the LM path launched kernels: "
+                             f"{run['launches']}")
+    if sorted(served) != list(range(len(texts))) or not all(
+            r.done and len(served[r.rid]) == LM_MAX_NEW for r in reqs):
+        raise AssertionError(f"{arch} serve: {served}")
+    alone = {}
+    for i in range(len(texts)):
+        alone.update(server.serve(requests([i])))
+    if alone != served:
+        raise AssertionError(f"{arch} serve: batched {served} != alone "
+                             f"{alone}")
+    batch = lm_batch(config, torch.as_tensor(
+        texts[0], dtype=torch.int64, device=DEVICE)[None])
+    with torch.inference_mode():
+        prefill_wall, prefill_ms, (logits, cache) = lm_events_ms(
+            lambda: model.prefill(params, batch, max_len=max_len),
+            LM_PREFILL_REPS)
+        last = logits[0, -1].argmax().view(1, 1)
+
+        def decode():
+            return model.decode_step(params, last, cache)
+
+        decode_wall, decode_ms, _ = lm_events_ms(decode, LM_DECODE_REPS)
+        decode_trace = device_idle(decode)
+    peak = torch.cuda.max_memory_allocated()
+    drops = moe_drops(model, params, batch, max_len) \
+        if config.n_experts else None
+    bounds = lm_bounds(model, prompts[0], cache,
+                       kept=drops["kept"] if drops else None)
+    cut_config, cut_tree = lm_cut(model, params)
+    cut_model = build_model(cut_config, device=DEVICE)
+    consistency_bf16 = lm_consistency(
+        cut_model, cut_model.load_params(cut_tree), cut_config)
+    plan = getattr(model, "plan", None)
+    del server, model, params, cache, logits, last, cut_model, cut_tree
+    torch.cuda.empty_cache()
+    c32 = cut_config.replace(dtype=torch.float32, param_dtype=torch.float32)
+    if plan is not None and 4 * sum(
+            int(np.prod(spec.shape)) for _, spec in
+            lm_common.tree_leaves_with_path(lm_param_specs(c32),
+                                            lm_common.is_spec)) \
+            > LM_F32_CHECK_BYTES:
+        c32 = c32.replace(n_layers=len(plan.prefix) + len(plan.unit))
+    model32 = build_model(c32, device=DEVICE)
+    consistency = lm_consistency(model32, model32.init(torch.Generator(
+        device=DEVICE).manual_seed(LM_SEED)), c32)
+    if consistency["excess"] > 0:
+        raise AssertionError(f"{arch} prefill/decode consistency in "
+                             f"float32: {consistency}")
+    del model32
+    torch.cuda.empty_cache()
+    cpu = lm_card_vs_cpu(arch)
+    torch.cuda.empty_cache()
+    decode_bound = {"bound_ms": bounds["decode_bound_ms"],
+                    "weights_bound_ms": bounds["decode_weights_bound_ms"],
+                    "bytes": bounds["decode_bytes"]}
+    if config.n_experts:
+        decode_bound.update(
+            activated_bound_ms=bounds["decode_activated_bound_ms"],
+            activated_bytes=bounds["decode_activated_bytes"])
+    run.update({
+        "phase": "lm_family", "nvidia_smi": card, "arch": arch,
+        "family": config.family, "n_layers": config.n_layers,
+        "published_layers": get_arch(arch).config.n_layers,
+        "d_model": config.d_model, "n_params": n_params,
+        "dtype": str(config.dtype), "param_dtype": str(config.param_dtype),
+        "weight_bytes": weight_bytes, "build_s": build_s,
+        "requests": {"prompts": list(prompts), "max_new_tokens": LM_MAX_NEW,
+                     "slots": LM_SLOTS, "max_len": max_len},
+        "served_tokens": sum(len(v) for v in served.values()),
+        "serve_wall_s": run["wall_s"],
+        "tokens_per_s": sum(len(v) for v in served.values()) / run["wall_s"],
+        "alone_equals_batched": True,
+        "prefill": {"tokens": prompts[0], "wall_ms": prefill_wall,
+                    "device_ms": prefill_ms,
+                    "bound_ms": bounds["prefill_bound_ms"],
+                    "bound_ms_every_block":
+                        bounds["prefill_bound_ms_every_block"],
+                    "ops": bounds["prefill_ops"]},
+        "decode_step": {"cache_len": prompts[0], "wall_ms": decode_wall,
+                        "device_ms": decode_ms, **decode_bound,
+                        "profiled": decode_trace},
+        "kv_bytes_a_token": bounds["kv_bytes_a_token"],
+        "state_bytes": bounds["state_bytes"], "moe_drops": drops,
+        "peak_bytes": peak,
+        "consistency": {
+            "float32": {"layers": lm_depth(c32), **consistency},
+            "bfloat16": {"layers": lm_depth(cut_config), **consistency_bf16,
+                         "held": False}},
+        "card_vs_cpu": cpu, "seconds": time.perf_counter() - t_model})
+    emit(run)
+    return run
+
+
+def phase_lm_families(card: str) -> list:
+    """``LM_FAMILIES`` one model at a time (:func:`lm_family`), then the
+    phase's wall beside ``LM_FAMILIES_BUDGET_S``.  Returns the runs whose
+    launches (all 0) the kernels line sums."""
+    t0 = time.perf_counter()
+    runs = [lm_family(card, arch, layers, prompts)
+            for arch, layers, prompts in LM_FAMILIES]
+    seconds = time.perf_counter() - t0
+    emit({"phase": "lm_families_done", "nvidia_smi": card,
+          "archs": [r["arch"] for r in runs], "seconds": seconds,
+          "budget_s": LM_FAMILIES_BUDGET_S,
+          "within_budget": seconds <= LM_FAMILIES_BUDGET_S})
+    return runs
 
 
 def build_all() -> dict:
@@ -3884,6 +4231,9 @@ def main(argv=None) -> int:
     # (its weights are freed before the graphs are made); its K4/K5
     # cross-checks' launches join the kernels line
     float_runs += phase_lm(card)
+    # 2d. the other LM families at full width (arctic-480b at 2 layers),
+    # one model at a time, each freed before the next
+    float_runs += phase_lm_families(card)
 
     # graphs: the sizes of the paper's soc-LiveJournal1 and delaunay_n24
     # for the main and frontier paths, smaller ones for the async path

@@ -25,6 +25,7 @@ from repro_torch.connectivity.streaming import StreamingConnectivity
 from repro_torch.graphs.structs import DeviceLike, Graph, resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SLSTMState, SSMState
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.model import check_tree, lm_param_specs
 
@@ -120,10 +121,11 @@ def lm_params_from_numpy(tree, config: ModelConfig,
     through ``np.asarray(p, np.float32)`` (exact for bfloat16), as
     tensors on ``device`` in ``config.param_dtype``.
 
-    Each leaf's path and shape is checked against the model's
-    ``param_specs()``; a missing, extra or misshapen leaf raises
-    ``ValueError``.  The tree goes to ``LM.load_params`` or
-    ``BatchedServer(config, params=...)``.
+    Each leaf's path and shape is checked against
+    ``build_model(config).param_specs()`` (the decoder LM's tree, or the
+    encoder-decoder's for the ``audio`` family); a missing, extra or
+    misshapen leaf raises ``ValueError``.  The tree goes to the model's
+    ``load_params`` or ``BatchedServer(config, params=...)``.
     """
     check_tree(tree, lm_param_specs(config))
     dev = resolve_device(device)
@@ -132,27 +134,45 @@ def lm_params_from_numpy(tree, config: ModelConfig,
         tree, lambda x: isinstance(x, np.ndarray))
 
 
+# a cache's float32 states (the rest of a cache is in config.dtype)
+_FLOAT32_STATES = {"ssd", "h", "c", "n", "m"}
+
+
 def lm_cache_from_numpy(cache, config: ModelConfig,
                         device: DeviceLike = None):
-    """The port's cache from a reference prefill's (``{"prefix": [...],
-    "unit": [KVCache, ...]}``, its ``k`` and ``v`` passed through
-    ``np.asarray(c, np.float32)``, its ``length`` through ``np.asarray``):
-    ``k``/``v`` in ``config.dtype`` on ``device``; each stacked ``length``
-    (one per layer, all equal) becomes the port's one Python int."""
+    """The port's cache from a reference prefill's, its float leaves
+    passed through ``np.asarray(c, np.float32)`` and its lengths through
+    ``np.asarray``: ``{"prefix": [...], "unit": [...]}`` and, for a
+    shared block, ``"shared"``, each entry a ``KVCache``, an
+    ``SSMState(conv, ssd)``, an ``SLSTMState(h, c, n, m)`` or the decoder
+    block's ``{"self": KVCache, "cross_k", "cross_v"}`` (the reference's
+    named tuples are read by their fields).  ``ssd`` and the sLSTM states
+    become float32, every other tensor ``config.dtype``, on ``device``;
+    each stacked ``length`` (one per layer, all equal) becomes the
+    port's one Python int."""
     dev = resolve_device(device)
 
-    def kv(c, what: str) -> KVCache:
-        k, v, length = c
-        lengths = np.unique(_require_numpy(f"{what}.length", length,
-                                           scalar=True))
-        if lengths.size != 1:
-            raise ValueError(f"{what}: the layers' lengths differ: "
-                             f"{lengths.tolist()}")
-        return KVCache(k=_float_tensor(k, config.dtype, dev, f"{what}.k"),
-                       v=_float_tensor(v, config.dtype, dev, f"{what}.v"),
-                       length=int(lengths[0]))
+    def carry(c, what: str):
+        fields = getattr(c, "_fields", None)
+        if fields == KVCache._fields:
+            k, v, length = c
+            lengths = np.unique(_require_numpy(f"{what}.length", length,
+                                               scalar=True))
+            if lengths.size != 1:
+                raise ValueError(f"{what}: the layers' lengths differ: "
+                                 f"{lengths.tolist()}")
+            return KVCache(k=carry(k, f"{what}.k"), v=carry(v, f"{what}.v"),
+                           length=int(lengths[0]))
+        if fields in (SSMState._fields, SLSTMState._fields):
+            kind = SSMState if fields == SSMState._fields else SLSTMState
+            return kind(*(carry(x, f"{what}.{name}")
+                          for name, x in zip(fields, c)))
+        if isinstance(c, dict):
+            return {key: carry(x, f"{what}.{key}") for key, x in c.items()}
+        if isinstance(c, (list, tuple)):
+            return [carry(x, f"{what}.{i}") for i, x in enumerate(c)]
+        name = what.rsplit(".", 1)[-1]
+        dtype = torch.float32 if name in _FLOAT32_STATES else config.dtype
+        return _float_tensor(c, dtype, dev, what)
 
-    return {"prefix": [kv(c, f"prefix.{i}")
-                       for i, c in enumerate(cache["prefix"])],
-            "unit": [kv(c, f"unit.{i}")
-                     for i, c in enumerate(cache["unit"])]}
+    return {key: carry(value, key) for key, value in cache.items()}

@@ -1,7 +1,9 @@
 """Batched LM serving: continuous-batching prefill + decode loop.
 
 The port's counterpart of ``repro.launch.serve``: requests arrive with
-prompts, get prefilled into per-slot KV caches, and a fixed-width decode
+prompts, get prefilled into per-slot KV/state caches (an encoder-decoder
+also encodes the stub's frame embeddings, zeros at half the prompt's
+length and at least 4), and a fixed-width decode
 batch greedily samples until each request hits its token budget.  Slot
 reuse = continuous batching (new requests take freed slots between decode
 steps).  It runs eager on the card (no ``torch.compile``, no CUDA graph),
@@ -10,7 +12,7 @@ or on the CPU where ``device="cpu"`` is named.
 Usage::
 
     python -m repro_torch.launch.serve --arch mistral-nemo-12b --smoke
-    python -m repro_torch.launch.serve --arch olmo-1b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -79,6 +81,10 @@ class BatchedServer:
             batch["patch_embeds"] = torch.zeros(
                 (1, n, self.config.d_model), dtype=torch.float32,
                 device=self.device)
+        if self.config.frontend == "audio_stub":
+            batch["frame_embeds"] = torch.zeros(
+                (1, max(tokens.shape[1] // 2, 4), self.config.d_model),
+                dtype=torch.float32, device=self.device)
         logits, cache = self.model.prefill(self.params, batch,
                                            max_len=self.max_len)
         next_tok = int(torch.argmax(logits[0, -1]))

@@ -17,7 +17,7 @@ The port's counterpart of ``repro.models.attention``, in plain torch
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -154,6 +154,7 @@ def attention_block(
     params, x: torch.Tensor, config: ModelConfig, *,
     positions: Optional[torch.Tensor] = None, causal: bool = True,
     cache: Optional[KVCache] = None,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """Full attention sub-block: project, rope, attend, out-project.
 
@@ -169,13 +170,18 @@ def attention_block(
         the returned cache holds the same tensors with ``length + t``.
         Positions past the cache's capacity raise ``ValueError`` (the
         reference clamps the write to the last positions).
-
-    Cross-attention (the ``audio`` family's) comes with that family.
+      * cross-attention (``cross_kv`` given): the encoder's K/V,
+        precomputed; no rotation, no mask; returns (out, None).
     """
     b, t, _ = x.shape
     rot = int(config.hd * config.rotary_pct)
 
-    if cache is None:
+    if cross_kv is not None:
+        q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
+        k, v = cross_kv
+        out = attend_full(q, k, v, causal=False)
+        new_state = None
+    elif cache is None:
         if positions is None:
             positions = torch.arange(t, device=x.device)
         q, k, v = _project_qkv(params, x, config)

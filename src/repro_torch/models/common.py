@@ -246,8 +246,9 @@ def init_param(generator: torch.Generator, spec: ParamSpec, dtype,
     """One leaf: zeros, ones, or a float32 standard normal times
     ``spec.scale`` cast to ``dtype``, drawn from ``generator`` (on its
     device) in one draw, or one draw per slice of the leading axis where
-    the leaf is ``stacked`` over layers (so no float32 copy of a whole
-    stacked leaf is ever made)."""
+    the leaf is ``stacked`` over layers, and per expert where the next
+    axis is ``experts`` (so no float32 copy of a whole stacked leaf, or
+    of a layer's experts, is ever made)."""
     device = generator.device if device is None else torch.device(device)
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
@@ -258,11 +259,14 @@ def init_param(generator: torch.Generator, spec: ParamSpec, dtype,
         return (torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=device) * spec.scale).to(dtype)
 
-    if not stacked:
+    split = int(stacked)
+    if spec.logical_axes[split:split + 1] == ("experts",):
+        split += 1
+    if not split:
         return draw(spec.shape)
     out = torch.empty(spec.shape, dtype=dtype, device=device)
-    for i in range(spec.shape[0]):
-        out[i] = draw(spec.shape[1:])
+    for index in np.ndindex(*spec.shape[:split]):
+        out[index] = draw(spec.shape[split:])
     return out
 
 

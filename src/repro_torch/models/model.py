@@ -1,22 +1,23 @@
 """Model facade: embeddings, modality frontends, LM head, loss, serving.
 
 The port's counterpart of ``repro.models.model``.  ``build_model(config)``
-returns an :class:`LM` (decoder-only: the ``dense`` and ``vlm`` families
-so far) with the reference's surface:
+returns an :class:`LM` (decoder-only: the ``dense``, ``moe``, ``ssm``,
+``hybrid`` and ``vlm`` families) or a :class:`Seq2Seq` (the ``audio``
+encoder-decoder), each with the reference's surface:
 
   * ``param_specs()``          — pytree of ParamSpec
   * ``init(generator)``        — concrete params (a ``torch.Generator``)
-  * ``loss(params, batch)``    — scalar LM loss (forward only)
+  * ``loss(params, batch)``    — scalar LM loss (+ MoE aux; forward only)
   * ``prefill(params, batch)`` — (last-position logits, cache)
   * ``decode_step(params, tokens, cache)`` — (logits, cache); consumes
-    the cache it is given (it writes into it in place)
+    the cache it is given (it updates it in place)
 
-Batches are dicts of tensors; the ``vlm`` frontend is a stub, as in the
-reference: ``patch_embeds`` arrive pre-computed at ``d_model`` and pass
-through a learned projection.  ``LM`` is an ``nn.Module`` whose
-parameters are the tree's leaves, with the tree's paths as
-``state_dict()`` keys (``backbone.unit.0.attn.wq``, stacked over layers).
-The encoder-decoder ``Seq2Seq`` (``audio``) comes with its family.
+Batches are dicts of tensors; the modality frontends are stubs, as in
+the reference: ``patch_embeds`` / ``frame_embeds`` arrive pre-computed at
+``d_model`` and pass through a learned projection.  Both models are
+``nn.Module``s whose parameters are the tree's leaves, with the tree's
+paths as ``state_dict()`` keys (``backbone.unit.0.attn.wq``, stacked over
+layers; ``encoder.*``/``decoder.*`` for the encoder-decoder).
 """
 from __future__ import annotations
 
@@ -77,7 +78,14 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 def lm_param_specs(config: ModelConfig,
                    plan: Optional[tfm.LayerPlan] = None) -> Dict[str, Any]:
-    """The decoder LM's ParamSpec tree (``LM.param_specs``)."""
+    """The ParamSpec tree of ``build_model(config)``: the decoder LM's
+    (``embed``, ``backbone``), or for the ``audio`` family the
+    encoder-decoder's (``embed``, ``encoder``, ``decoder``)."""
+    if config.family == "audio":
+        enc, dec = tfm.seq2seq_plans(config)
+        return {"embed": _embed_specs(config),
+                "encoder": tfm.backbone_specs(config, enc),
+                "decoder": tfm.backbone_specs(config, dec)}
     return {
         "embed": _embed_specs(config),
         "backbone": tfm.backbone_specs(config, plan or tfm.layer_plan(config)),
@@ -111,15 +119,13 @@ class _Node(nn.Module):
         return out
 
 
-class LM(nn.Module):
-    """Decoder-only language model (``dense`` / ``vlm``).
-
-    The parameters live on ``device`` (the card unless one is named; no
-    card and no named device raises).  Until :meth:`init` or
-    :meth:`load_params` they are ``meta`` tensors.  The methods take the
-    parameter tree explicitly, as the reference's do; :meth:`params`
-    returns the module's own.
-    """
+class _Model(nn.Module):
+    """What both models share: the parameter tree as modules, on
+    ``device`` (the card unless one is named; no card and no named
+    device raises).  Until :meth:`init` or :meth:`load_params` the
+    parameters are ``meta`` tensors.  The methods take the parameter
+    tree explicitly, as the reference's do; :meth:`params` returns the
+    module's own."""
 
     def __init__(self, config: ModelConfig, mesh=None,
                  device: DeviceLike = None):
@@ -128,30 +134,32 @@ class LM(nn.Module):
             raise NotImplementedError(
                 "a model on a mesh waits for the launch slice (ROADMAP "
                 "Queue A item (e), launch/mesh.py)")
-        self.plan = tfm.layer_plan(config)    # raises for families not built
         self.config = config
         self.device = resolve_device(device)
         self._set(cm.abstract_tree(self.param_specs(), config.param_dtype))
 
     def _set(self, tree) -> Dict[str, Any]:
-        self.embed = _Node(tree["embed"])
-        self.backbone = _Node(tree["backbone"])
+        self._trees = tuple(tree)
+        for key, sub in tree.items():
+            setattr(self, key, _Node(sub))
         return self.params()
 
     # -- parameters -------------------------------------------------------
     def param_specs(self):
-        return lm_param_specs(self.config, self.plan)
+        raise NotImplementedError
 
     def params(self) -> Dict[str, Any]:
         """The module's parameter tree (its own tensors, no copies)."""
-        return {"embed": self.embed.tree(), "backbone": self.backbone.tree()}
+        return {key: getattr(self, key).tree() for key in self._trees}
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Draw every parameter from ``generator`` (on this model's device),
-        a stacked leaf one layer at a time, in ``config.param_dtype``."""
+        a stacked leaf one layer at a time (an expert leaf one expert at
+        a time), in ``config.param_dtype``."""
+        stacked = tuple(f"{key}.unit." for key in self._trees)
         return self._set(cm.init_tree(
             generator, self.param_specs(), self.config.param_dtype,
-            self.device, stacked=("backbone.unit.",)))
+            self.device, stacked=stacked))
 
     def load_params(self, tree) -> Dict[str, Any]:
         """Take ``tree`` (the reference's layout, tensors) as the module's
@@ -162,11 +170,29 @@ class LM(nn.Module):
         return self._set(cm.tree_map(
             lambda t: t.to(device=device, dtype=dtype), tree, _is_tensor))
 
+    def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"]["tok_embed"][tokens.long()].to(
+            self.config.dtype)
+
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.arange(x.shape[1], device=x.device)
+
+
+class LM(_Model):
+    """Decoder-only language model (dense / moe / ssm / hybrid / vlm)."""
+
+    def __init__(self, config: ModelConfig, mesh=None,
+                 device: DeviceLike = None):
+        self.plan = tfm.layer_plan(config)
+        super().__init__(config, mesh, device)
+
+    def param_specs(self):
+        return lm_param_specs(self.config, self.plan)
+
     # -- shared input processing ------------------------------------------
     def _embed_inputs(self, params, batch) -> torch.Tensor:
         config = self.config
-        tokens = batch["tokens"]
-        x = params["embed"]["tok_embed"][tokens.long()].to(config.dtype)
+        x = self._embed_tokens(params, batch["tokens"])
         if config.frontend == "patch_stub" and "patch_embeds" in batch:
             p = batch["patch_embeds"].to(config.dtype)
             p = p @ params["embed"]["patch_proj"].to(config.dtype)
@@ -178,11 +204,8 @@ class LM(nn.Module):
     def loss(self, params, batch):
         config = self.config
         x = self._embed_inputs(params, batch)
-        ctx = tfm.BlockCtx(
-            config=config, mode="train",
-            positions=torch.arange(x.shape[1], device=x.device),
-            max_cache_len=0,
-        )
+        ctx = tfm.BlockCtx(config=config, mode="train",
+                           positions=self._positions(x), max_cache_len=0)
         x, _, aux = tfm.backbone_apply(params["backbone"], x, ctx,
                                        plan=self.plan)
         logits = _logits(params["embed"], x, config)
@@ -197,11 +220,9 @@ class LM(nn.Module):
         the prompt (defaults to prompt length - no decode room)."""
         config = self.config
         x = self._embed_inputs(params, batch)
-        ctx = tfm.BlockCtx(
-            config=config, mode="prefill",
-            positions=torch.arange(x.shape[1], device=x.device),
-            max_cache_len=max(max_len, x.shape[1]),
-        )
+        ctx = tfm.BlockCtx(config=config, mode="prefill",
+                           positions=self._positions(x),
+                           max_cache_len=max(max_len, x.shape[1]))
         x, cache, _ = tfm.backbone_apply(params["backbone"], x, ctx,
                                          plan=self.plan)
         logits = _logits(params["embed"], x[:, -1:, :], config)
@@ -209,10 +230,10 @@ class LM(nn.Module):
 
     def decode_step(self, params, tokens: torch.Tensor, cache):
         """One step of ``tokens`` (B, t) against ``cache``, which it
-        consumes: the step writes its K/V into the cache's tensors and
-        returns them with the new length."""
+        consumes: the step writes its K/V and new recurrent states into
+        the cache's tensors and returns them with the new lengths."""
         config = self.config
-        x = params["embed"]["tok_embed"][tokens.long()].to(config.dtype)
+        x = self._embed_tokens(params, tokens)
         ctx = tfm.BlockCtx(config=config, mode="decode", positions=None,
                            max_cache_len=0)
         x, cache, _ = tfm.backbone_apply(
@@ -242,12 +263,71 @@ def check_tree(tree, specs) -> None:
                          f"{wrong}")
 
 
-class Seq2Seq:
-    """The encoder-decoder LM (``audio``) comes with its family."""
+class Seq2Seq(_Model):
+    """Encoder-decoder LM (the ``audio`` family's seamless backbone): a
+    bidirectional encoder over the stub's frame embeddings, and a
+    decoder of causal self-attention, cross-attention and MLP."""
 
     def __init__(self, config: ModelConfig, mesh=None,
                  device: DeviceLike = None):
-        raise tfm.not_built(config.family)
+        self.enc_plan, self.dec_plan = tfm.seq2seq_plans(config)
+        super().__init__(config, mesh, device)
+
+    def param_specs(self):
+        return lm_param_specs(self.config)
+
+    def encode(self, params, batch) -> torch.Tensor:
+        config = self.config
+        frames = batch["frame_embeds"].to(config.dtype)
+        x = frames @ params["embed"]["frame_proj"].to(config.dtype)
+        ctx = tfm.BlockCtx(config=config, mode="train",
+                           positions=self._positions(x), max_cache_len=0)
+        x, _, _ = tfm.backbone_apply(params["encoder"], x, ctx,
+                                     plan=self.enc_plan)
+        return x
+
+    def loss(self, params, batch):
+        config = self.config
+        enc_out = self.encode(params, batch)
+        x = self._embed_tokens(params, batch["tokens"])
+        ctx = tfm.BlockCtx(config=config, mode="train",
+                           positions=self._positions(x), max_cache_len=0,
+                           enc_out=enc_out)
+        x, _, _ = tfm.backbone_apply(params["decoder"], x, ctx,
+                                     plan=self.dec_plan)
+        logits = _logits(params["embed"], x, config)
+        ce = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+
+    def prefill(self, params, batch, max_len: int = 0):
+        """Encode ``frame_embeds``, then prefill the decoder with
+        ``tokens``; the cache holds each layer's cross K/V."""
+        config = self.config
+        enc_out = self.encode(params, batch)
+        x = self._embed_tokens(params, batch["tokens"])
+        ctx = tfm.BlockCtx(config=config, mode="prefill",
+                           positions=self._positions(x),
+                           max_cache_len=max(max_len, x.shape[1]),
+                           enc_out=enc_out)
+        x, cache, _ = tfm.backbone_apply(params["decoder"], x, ctx,
+                                         plan=self.dec_plan)
+        logits = _logits(params["embed"], x[:, -1:, :], config)
+        return logits, cache
+
+    def decode_step(self, params, tokens: torch.Tensor, cache):
+        """As :meth:`LM.decode_step`: consumes ``cache``."""
+        x = self._embed_tokens(params, tokens)
+        ctx = tfm.BlockCtx(config=self.config, mode="decode",
+                           positions=None, max_cache_len=0)
+        x, cache, _ = tfm.backbone_apply(
+            params["decoder"], x, ctx, cache=cache, plan=self.dec_plan)
+        logits = _logits(params["embed"], x, self.config)
+        return logits, cache
+
+    def init_cache(self, batch: int, max_len: int, src_len: int = 0):
+        return tfm.init_cache(self.config, batch, max_len,
+                              plan=self.dec_plan, device=self.device,
+                              src_len=src_len or max_len)
 
 
 def build_model(config: ModelConfig, mesh=None,

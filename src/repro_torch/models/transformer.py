@@ -1,20 +1,33 @@
-"""Decoder-only LM assembly: block registry, layer plan, loop over layers.
+"""LM assembly: block registry, layer plan, loop over layers.
 
 The port's counterpart of ``repro.models.transformer``.  Every
-architecture is a *layer plan*: an optional unrolled ``prefix``, a
-repeating ``unit`` of block types run ``n_repeat`` times with its
-parameters stacked on a leading layer axis, and an optional ``shared``
-block.  Where the reference scans over the layer axis, the port loops
-over it with views of the stacked parameters (no copies) and returns the
-stacked cache the scan returns.  Serving has no remat; the training mode
-runs the forward only (its backward comes with the training slice).
+architecture is a *layer plan*: an optional unrolled ``prefix`` (e.g.
+DeepSeek-MoE's first dense layer), a repeating ``unit`` of block types
+run ``n_repeat`` times with its parameters stacked on a leading layer
+axis, and an optional ``shared`` block applied after each unit
+repetition with one weight set and a cache per use (Zamba2's shared
+attention).  Where the reference scans over the layer axis, the port
+loops over it with views of the stacked parameters (no copies) and
+returns the stacked cache the scan returns.  Serving has no remat; the
+training mode runs the forward only (its backward comes with the
+training slice).
 
-The decoder families ``dense`` and ``vlm`` (block ``attn_mlp``) are
-built; ``moe``, ``ssm`` and ``hybrid`` raise ``NotImplementedError`` from
-:func:`layer_plan`, before any parameter is made (ROADMAP Queue A).
+A block's cache is any of: a :class:`~repro_torch.models.attention.
+KVCache`; an :class:`~repro_torch.models.ssm.SSMState` (Mamba2, mLSTM) or
+:class:`~repro_torch.models.ssm.SLSTMState`; the decoder block's
+``{"self": KVCache, "cross_k", "cross_v"}``.  The machinery below stacks,
+slices and merges them generically: tensors carry the layer axis, a
+``length`` (a Python int) is one for every layer.
+
+A decode step **updates the cache it is given in place**: attention
+writes its K/V into the cache's tensors (``attention.attention_block``),
+and the recurrent blocks' new states (which ``ssm`` computes as new
+tensors) are copied into the given state's tensors.  The returned cache
+holds the given tensors, with the new lengths, for every block kind.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -22,20 +35,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig, ParamSpec
-
-# the families the port does not build yet, and their ROADMAP items
-NOT_BUILT = {
-    "moe": "ROADMAP Queue A item (a), the moe family",
-    "ssm": "ROADMAP Queue A item (b), ssm.py with ssm/hybrid",
-    "hybrid": "ROADMAP Queue A item (b), ssm.py with ssm/hybrid",
-    "audio": "ROADMAP Queue A item (c), Seq2Seq/audio",
-}
-
-
-def not_built(family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {family!r} family is not ported yet ({NOT_BUILT[family]})")
 
 
 # ---------------------------------------------------------------------------
@@ -50,11 +51,39 @@ class LayerPlan(NamedTuple):
 
 
 def layer_plan(config: ModelConfig) -> LayerPlan:
+    """The decoder-only plan of ``config`` (the ``audio`` family's two
+    plans are :func:`seq2seq_plans`)."""
+    L = config.n_layers
     if config.family in ("dense", "vlm"):
-        return LayerPlan((), ("attn_mlp",), config.n_layers, None)
-    if config.family in NOT_BUILT:
-        raise not_built(config.family)
+        return LayerPlan((), ("attn_mlp",), L, None)
+    if config.family == "moe":
+        k = config.first_k_dense
+        return LayerPlan(("attn_dense_mlp",) * k, ("attn_moe",), L - k, None)
+    if config.family == "ssm":           # xLSTM
+        se = config.slstm_every
+        if se > 0:
+            if L % se:
+                raise ValueError(f"{L} layers are not a multiple of "
+                                 f"slstm_every={se}")
+            unit = ("mlstm",) * (se - 1) + ("slstm",)
+            return LayerPlan((), unit, L // se, None)
+        return LayerPlan((), ("mlstm",), L, None)
+    if config.family == "hybrid":        # Zamba2
+        ae = config.attn_every
+        if ae <= 0 or L % ae:
+            raise ValueError(f"{L} layers need a positive attn_every that "
+                             f"divides them, got {ae}")
+        shared = "shared_attn_mlp" if config.d_ff > 0 else "shared_attn"
+        return LayerPlan((), ("mamba",) * ae, L // ae, shared)
     raise ValueError(config.family)
+
+
+def seq2seq_plans(config: ModelConfig) -> Tuple[LayerPlan, LayerPlan]:
+    """The encoder's and the decoder's plans of an ``audio`` config."""
+    n_enc = config.n_enc_layers or config.n_layers
+    n_dec = config.n_dec_layers or config.n_layers
+    return (LayerPlan((), ("enc_attn_mlp",), n_enc, None),
+            LayerPlan((), ("dec_block",), n_dec, None))
 
 
 # ---------------------------------------------------------------------------
@@ -66,14 +95,16 @@ class BlockCtx(NamedTuple):
     mode: str                  # train | prefill | decode
     positions: Optional[torch.Tensor]
     max_cache_len: int
+    enc_out: Optional[torch.Tensor] = None   # encoder memory (enc-dec)
 
 
-def _attn_mlp_specs(config: ModelConfig):
+def _attn_mlp_specs(config: ModelConfig, dense_ff: bool = False):
+    d_ff = config.dense_d_ff if dense_ff and config.dense_d_ff else config.d_ff
     return {
         "ln_attn": cm.norm_params(config, config.d_model),
         "attn": attn.attention_specs(config),
         "ln_mlp": cm.norm_params(config, config.d_model),
-        "mlp": mlp_mod.mlp_specs(config),
+        "mlp": mlp_mod.mlp_specs(config, d_ff=d_ff),
     }
 
 
@@ -113,11 +144,139 @@ def _apply_attn_mlp(params, x: torch.Tensor, ctx: BlockCtx, cache):
     return x, new_cache, 0.0
 
 
+def _attn_moe_specs(config: ModelConfig):
+    return {
+        "ln_attn": cm.norm_params(config, config.d_model),
+        "attn": attn.attention_specs(config),
+        "ln_mlp": cm.norm_params(config, config.d_model),
+        "moe": mlp_mod.moe_specs(config),
+    }
+
+
+def _apply_attn_moe(params, x: torch.Tensor, ctx: BlockCtx, cache):
+    x, new_cache = _apply_attn(params, x, ctx, cache)
+    h = cm.apply_norm(x, params["ln_mlp"], ctx.config)
+    y, aux = mlp_mod.moe_apply(params["moe"], h, ctx.config)
+    return x + y, new_cache, aux
+
+
+def _recurrent(key: str, specs_fn, apply, decode):
+    """A pre-norm residual block (norm ``ln``) around an ``ssm``
+    apply/decode pair whose parameters sit under ``key``."""
+
+    def specs(config: ModelConfig):
+        return {"ln": cm.norm_params(config, config.d_model),
+                key: specs_fn(config)}
+
+    def run(params, x: torch.Tensor, ctx: BlockCtx, cache):
+        config = ctx.config
+        h = cm.apply_norm(x, params["ln"], config)
+        if ctx.mode == "train":
+            y, new_cache = apply(params[key], h, config), None
+        elif ctx.mode == "prefill":
+            y, new_cache = apply(params[key], h, config, return_state=True)
+        else:
+            y, new_cache = decode(params[key], h, config, cache)
+        return x + y, new_cache, 0.0
+
+    return specs, run
+
+
+def _shared_attn_specs(config: ModelConfig):
+    return {
+        "ln": cm.norm_params(config, config.d_model),
+        "attn": attn.attention_specs(config),
+    }
+
+
+def _apply_shared_attn(params, x: torch.Tensor, ctx: BlockCtx, cache):
+    x, new_cache = _apply_attn(
+        {"ln_attn": params["ln"], "attn": params["attn"]}, x, ctx, cache)
+    return x, new_cache, 0.0
+
+
+def _apply_enc_attn_mlp(params, x: torch.Tensor, ctx: BlockCtx, cache):
+    """Bidirectional encoder block — never cached."""
+    config = ctx.config
+    h = cm.apply_norm(x, params["ln_attn"], config)
+    out, _ = attn.attention_block(params["attn"], h, config,
+                                  positions=ctx.positions, causal=False,
+                                  cache=None)
+    x = x + out
+    h = cm.apply_norm(x, params["ln_mlp"], config)
+    x = x + mlp_mod.mlp_apply(params["mlp"], h, config)
+    return x, None, 0.0
+
+
+def _dec_block_specs(config: ModelConfig):
+    return {
+        "ln_self": cm.norm_params(config, config.d_model),
+        "self_attn": attn.attention_specs(config),
+        "ln_cross": cm.norm_params(config, config.d_model),
+        "cross_attn": attn.attention_specs(config),
+        "ln_mlp": cm.norm_params(config, config.d_model),
+        "mlp": mlp_mod.mlp_specs(config),
+    }
+
+
+def _cross_kv(params, enc_out: torch.Tensor, config: ModelConfig):
+    k = torch.einsum("btd,dhk->bthk", enc_out, params["wk"].to(enc_out.dtype))
+    v = torch.einsum("btd,dhk->bthk", enc_out, params["wv"].to(enc_out.dtype))
+    return k, v
+
+
+def _apply_dec_block(params, x: torch.Tensor, ctx: BlockCtx, cache):
+    """Decoder block: causal self-attn (cached) + cross-attn + MLP.
+
+    Cache layout: {"self": KVCache, "cross_k": ..., "cross_v": ...} — the
+    cross K/V are computed once from the encoder memory at prefill and
+    reused every decode step.
+    """
+    config = ctx.config
+    x, self_cache = _apply_attn(
+        {"ln_attn": params["ln_self"], "attn": params["self_attn"]}, x, ctx,
+        cache["self"] if ctx.mode == "decode" else None)
+    h = cm.apply_norm(x, params["ln_cross"], config)
+    if ctx.mode == "decode":
+        ck, cv = cache["cross_k"].to(h.dtype), cache["cross_v"].to(h.dtype)
+    else:
+        ck, cv = _cross_kv(params["cross_attn"], ctx.enc_out, config)
+    out, _ = attn.attention_block(params["cross_attn"], h, config,
+                                  cross_kv=(ck, cv))
+    x = x + out
+    h = cm.apply_norm(x, params["ln_mlp"], config)
+    x = x + mlp_mod.mlp_apply(params["mlp"], h, config)
+    if ctx.mode == "train":
+        return x, None, 0.0
+    return x, {"self": self_cache, "cross_k": ck.to(config.dtype),
+               "cross_v": cv.to(config.dtype)}, 0.0
+
+
+_mamba = _recurrent("mamba", ssm_mod.mamba2_specs, ssm_mod.mamba2_apply,
+                    ssm_mod.mamba2_decode)
+_mlstm = _recurrent("mlstm", ssm_mod.mlstm_specs, ssm_mod.mlstm_apply,
+                    ssm_mod.mlstm_decode)
+_slstm = _recurrent("slstm", ssm_mod.slstm_specs, ssm_mod.slstm_apply,
+                    ssm_mod.slstm_decode)
+
 BLOCKS = {
     "attn_mlp": (_attn_mlp_specs, _apply_attn_mlp),
+    "enc_attn_mlp": (_attn_mlp_specs, _apply_enc_attn_mlp),
+    "dec_block": (_dec_block_specs, _apply_dec_block),
+    "attn_dense_mlp": (
+        functools.partial(_attn_mlp_specs, dense_ff=True), _apply_attn_mlp),
+    "attn_moe": (_attn_moe_specs, _apply_attn_moe),
+    "mamba": _mamba,
+    "mlstm": _mlstm,
+    "slstm": _slstm,
+    "shared_attn": (_shared_attn_specs, _apply_shared_attn),
+    # Zamba2-style shared transformer block: attention + MLP, one set of
+    # weights applied after every unit repetition (caches stay per use)
+    "shared_attn_mlp": (_attn_mlp_specs, _apply_attn_mlp),
 }
 
-_ATTN_BLOCKS = {"attn_mlp"}
+_ATTN_BLOCKS = {"attn_mlp", "attn_dense_mlp", "attn_moe", "shared_attn",
+                "shared_attn_mlp"}
 
 
 def _stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
@@ -130,45 +289,97 @@ def _stack_tree(specs, n: int):
 
 
 # ---------------------------------------------------------------------------
-# Cache construction
+# Caches: construction, stacking, layer views
 # ---------------------------------------------------------------------------
 
 def init_block_cache(btype: str, batch: int, max_len: int,
-                     config: ModelConfig, device=None):
+                     config: ModelConfig, device=None, src_len: int = 0):
     if btype in _ATTN_BLOCKS:
         return attn.init_kv_cache(batch, max_len, config, config.dtype,
                                   device)
+    if btype == "dec_block":
+        kv_shape = (batch, src_len, config.n_kv_heads, config.hd)
+        return {
+            "self": attn.init_kv_cache(batch, max_len, config, config.dtype,
+                                       device),
+            "cross_k": torch.zeros(kv_shape, dtype=config.dtype,
+                                   device=device),
+            "cross_v": torch.zeros(kv_shape, dtype=config.dtype,
+                                   device=device),
+        }
+    if btype == "mamba":
+        return ssm_mod.mamba2_init_state(batch, config, config.dtype, device)
+    if btype == "mlstm":
+        return ssm_mod.mlstm_init_state(batch, config, config.dtype, device)
+    if btype == "slstm":
+        return ssm_mod.slstm_init_state(batch, config, device)
     raise ValueError(btype)
 
 
-def _stack_caches(caches) -> attn.KVCache:
-    """Per-layer caches as one cache with a leading layer axis."""
-    return attn.KVCache(k=torch.stack([c.k for c in caches]),
-                        v=torch.stack([c.v for c in caches]),
-                        length=caches[0].length)
+def _is_cache_leaf(x) -> bool:
+    return isinstance(x, (torch.Tensor, int))
 
 
-def _layer_view(cache: attn.KVCache, i: int) -> attn.KVCache:
+def _cache_leaves(cache) -> Dict[str, Any]:
+    return dict(cm.tree_leaves_with_path(cache, _is_cache_leaf))
+
+
+def _stack_caches(caches):
+    """Per-layer caches as one cache with a leading layer axis on every
+    tensor; a ``length`` must be the same in every layer."""
+    per_layer = [_cache_leaves(c) for c in caches]
+
+    def stack(path: str, leaf):
+        if isinstance(leaf, torch.Tensor):
+            return torch.stack([layer[path] for layer in per_layer])
+        if any(layer[path] != leaf for layer in per_layer):
+            raise ValueError(f"{path} differs between the layers")
+        return leaf
+
+    return cm.tree_map_with_path(stack, caches[0], _is_cache_leaf)
+
+
+def _layer_view(cache, i: int):
     """Layer ``i`` of a stacked cache, as views of its tensors."""
-    return cache._replace(k=cache.k[i], v=cache.v[i])
+    return cm.tree_map(lambda t: t[i] if isinstance(t, torch.Tensor) else t,
+                       cache, _is_cache_leaf)
+
+
+def _with_lengths(stacked, layer):
+    """``stacked``'s tensors with the lengths of one of its layers."""
+    lengths = _cache_leaves(layer)
+    return cm.tree_map_with_path(
+        lambda path, leaf: leaf if isinstance(leaf, torch.Tensor)
+        else lengths[path], stacked, _is_cache_leaf)
+
+
+def _consume(given, out):
+    """Copy a decode step's new state tensors ``out`` into the cache
+    ``given`` (those it did not write already), and return ``given``
+    with ``out``'s lengths."""
+    new = _cache_leaves(out)
+    for path, leaf in _cache_leaves(given).items():
+        if isinstance(leaf, torch.Tensor) and new[path] is not leaf:
+            leaf.copy_(new[path])
+    return _with_lengths(given, out)
 
 
 def init_cache(config: ModelConfig, batch: int, max_len: int,
-               plan: Optional[LayerPlan] = None, device=None):
+               plan: Optional[LayerPlan] = None, device=None,
+               src_len: int = 0):
     """Full-model cache pytree matching the layer plan (zeros, length 0)."""
     plan = plan or layer_plan(config)
     n = plan.n_repeat
+
+    def block(btype: str, src: int = 0):
+        return init_block_cache(btype, batch, max_len, config, device, src)
+
     cache = {
-        "prefix": [init_block_cache(b, batch, max_len, config, device)
-                   for b in plan.prefix],
-        "unit": [_stack_caches([init_block_cache(b, batch, max_len, config,
-                                                 device)] * n)
-                 for b in plan.unit],
+        "prefix": [block(b, src_len) for b in plan.prefix],
+        "unit": [_stack_caches([block(b, src_len)] * n) for b in plan.unit],
     }
     if plan.shared is not None:
-        cache["shared"] = _stack_caches(
-            [init_block_cache(plan.shared, batch, max_len, config,
-                              device)] * n)
+        cache["shared"] = _stack_caches([block(plan.shared)] * n)
     return cache
 
 
@@ -200,52 +411,54 @@ def backbone_apply(params, x: torch.Tensor, ctx: BlockCtx, cache=None,
                    plan: Optional[LayerPlan] = None):
     """Run all layers. Returns (x, new_cache, aux_loss_sum).
 
-    Prefill builds each layer's cache and stacks them; decode writes into
-    the stacked cache it is given, in place (a decode consumes its cache,
-    ``attention.attention_block``), and returns it with the new length.
+    Prefill builds each layer's cache and stacks them; decode runs each
+    layer on a view of the stacked cache it is given and updates it in
+    place (see the module's docstring), returning it with the new
+    lengths.
     """
     config = ctx.config
     plan = plan or layer_plan(config)
+    decode = ctx.mode == "decode"
+    use_cache = ctx.mode != "train"
     new_cache: Dict[str, Any] = {"prefix": [], "unit": None}
     aux_total = 0.0
-    use_cache = ctx.mode != "train"
+
+    def run(btype, block_params, x, c_in):
+        x, c_out, aux = BLOCKS[btype][1](block_params, x, ctx, c_in)
+        if decode:
+            c_out = _consume(c_in, c_out)
+        return x, c_out, aux
 
     for i, btype in enumerate(plan.prefix):
-        c_in = cache["prefix"][i] if use_cache and cache else None
-        x, c_out, aux = BLOCKS[btype][1](params["prefix"][i], x, ctx, c_in)
+        c_in = cache["prefix"][i] if decode else None
+        x, c_out, aux = run(btype, params["prefix"][i], x, c_in)
         aux_total = aux_total + aux
         new_cache["prefix"].append(c_out)
 
-    unit_in = cache["unit"] if use_cache and cache else None
-    shared_in = cache.get("shared") if use_cache and cache else None
+    unit_in = cache["unit"] if decode else None
+    shared_in = cache.get("shared") if decode else None
     unit_out = [[] for _ in plan.unit]
     shared_out = []
     for i in range(plan.n_repeat):
         for j, btype in enumerate(plan.unit):
-            c_in = _layer_view(unit_in[j], i) if unit_in is not None \
-                else None
-            x, c_out, aux = BLOCKS[btype][1](_layer(params["unit"][j], i),
-                                             x, ctx, c_in)
+            c_in = _layer_view(unit_in[j], i) if decode else None
+            x, c_out, aux = run(btype, _layer(params["unit"][j], i), x, c_in)
             aux_total = aux_total + aux
             unit_out[j].append(c_out)
         if plan.shared is not None:
-            c_in = _layer_view(shared_in, i) if shared_in is not None \
-                else None
-            x, c_out, _ = BLOCKS[plan.shared][1](params["shared"], x, ctx,
-                                                 c_in)
+            c_in = _layer_view(shared_in, i) if decode else None
+            x, c_out, _ = run(plan.shared, params["shared"], x, c_in)
             shared_out.append(c_out)
 
-    if use_cache:
-        if ctx.mode == "decode":
-            # the layers wrote into views of the stacked tensors
-            new_cache["unit"] = [stacked._replace(length=outs[-1].length)
-                                 for stacked, outs in zip(unit_in, unit_out)]
-            if plan.shared is not None:
-                new_cache["shared"] = shared_in._replace(
-                    length=shared_out[-1].length)
-        else:
-            new_cache["unit"] = [_stack_caches(outs) for outs in unit_out]
-            if plan.shared is not None:
-                new_cache["shared"] = _stack_caches(shared_out)
+    if decode:
+        # the layers updated views of the stacked tensors
+        new_cache["unit"] = [_with_lengths(stacked, outs[-1])
+                             for stacked, outs in zip(unit_in, unit_out)]
+        if plan.shared is not None:
+            new_cache["shared"] = _with_lengths(shared_in, shared_out[-1])
+    elif use_cache:
+        new_cache["unit"] = [_stack_caches(outs) for outs in unit_out]
+        if plan.shared is not None:
+            new_cache["shared"] = _stack_caches(shared_out)
     x = cm.apply_norm(x, params["final_norm"], config)
     return x, (new_cache if use_cache else None), aux_total

@@ -1704,7 +1704,10 @@ def _numpy_lm_params(config, seed: int):
 
 
 @pytest.mark.parametrize("name", ["mistral-nemo-12b", "llava-next-34b",
-                                  "stablelm-1.6b", "olmo-1b"])
+                                  "stablelm-1.6b", "olmo-1b",
+                                  "deepseek-moe-16b", "arctic-480b",
+                                  "xlstm-125m", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
 def test_lm_on_the_card_matches_the_cpu(cuda, name):
     """The same carried-across float32 weights on the card and on CPU
     tensors: prefill and decode logits within 1e-4, greedy tokens equal,
@@ -1719,6 +1722,7 @@ def test_lm_on_the_card_matches_the_cpu(cuda, name):
     tree = _numpy_lm_params(config, 0)
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, config.vocab_size, (2, 12))
+    frames = rng.standard_normal((2, 6, config.d_model))
     runs, served = {}, {}
     for dev in ("cpu", cuda):
         model = build_model(config, device=dev)
@@ -1728,6 +1732,9 @@ def test_lm_on_the_card_matches_the_cpu(cuda, name):
         if config.frontend == "patch_stub":
             batch["patch_embeds"] = torch.ones(
                 (2, config.n_frontend_tokens, config.d_model), device=dev)
+        if config.frontend == "audio_stub":
+            batch["frame_embeds"] = torch.as_tensor(
+                frames, dtype=torch.float32, device=dev)
         logits, cache = model.prefill(params, batch, max_len=12)
         out = [logits.cpu()]
         for i in range(8, 12):
@@ -1745,6 +1752,34 @@ def test_lm_on_the_card_matches_the_cpu(cuda, name):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
         assert torch.equal(a.argmax(-1), b.argmax(-1))
     assert served["cpu"] == served[str(cuda)]
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "arctic-480b"])
+def test_moe_drops_on_the_card_match_the_cpu(cuda, name):
+    """``moe_apply`` with drops forced (``capacity_factor=0.5``, 2 x 64
+    tokens) in float32 on the card and on CPU tensors: the same
+    assignments dropped, outputs and aux loss within 1e-4."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import common as cm
+    from repro_torch.models import mlp
+
+    config = get_arch(name).smoke_config().replace(
+        dtype=torch.float32, capacity_factor=0.5)
+    tree = _numpy_lm_params(config, 2)["backbone"]["unit"][0]["moe"]
+    x = np.random.default_rng(3).standard_normal((2, 64, config.d_model))
+    outs = {}
+    for dev in ("cpu", cuda):
+        params = cm.tree_map(
+            lambda a: torch.as_tensor(a[0], device=dev), tree,
+            lambda a: isinstance(a, np.ndarray))
+        xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        y, aux = mlp.moe_apply(params, xt, config)
+        keep = mlp.route(params, xt.reshape(-1, config.d_model), config)[4]
+        outs[str(dev)] = (y.cpu(), float(aux), keep.cpu())
+    (y0, a0, k0), (y1, a1, k1) = outs["cpu"], outs[str(cuda)]
+    assert int((~k0).sum()) > 0 and torch.equal(k0, k1)
+    torch.testing.assert_close(y1, y0, atol=1e-4, rtol=1e-4)
+    assert abs(a0 - a1) <= 1e-4 * (1 + a0)
 
 
 @pytest.mark.parametrize("t", [1024, 4096])

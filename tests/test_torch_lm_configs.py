@@ -1,8 +1,8 @@
 """The port's architecture registry and parameter specs against the JAX
 package's: all ten ``ARCHS`` field by field (dtypes compared by name),
 ``smoke_config()``, ``cells()``, ``input_specs`` for every shape, the
-five decoder configs' ``param_specs()`` (paths, shapes, logical axes,
-init, scale) and ``resolve_spec`` over them on a ``(data, model)`` and a
+ten configs' ``param_specs()`` (paths, shapes, logical axes, init,
+scale; the encoder-decoder's ``embed``/``encoder``/``decoder`` tree) and ``resolve_spec`` over them on a ``(data, model)`` and a
 ``(pod, data, model)`` mesh under every profile.  Pure Python: exact
 equality."""
 import dataclasses
@@ -96,7 +96,7 @@ def test_arch_equals_the_reference(name):
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
-@pytest.mark.parametrize("name", DECODERS)
+@pytest.mark.parametrize("name", sorted(REF_ARCHS))
 def test_param_specs_equal_the_reference(name, smoke):
     ref_arch, arch = REF_ARCHS[name], ARCHS[name]
     ref_config = ref_arch.smoke_config() if smoke else ref_arch.config

@@ -1,19 +1,23 @@
-"""The decoder LMs against the JAX package's, with the reference's
-weights carried across (``interop.lm_params_from_numpy``).
+"""The LMs against the JAX package's, with the reference's weights
+carried across (``interop.lm_params_from_numpy``).
 
-For the five decoder smoke configs (llava with ``patch_embeds``): the
-prefill's last-position logits and its cache (``k``, ``v``, ``length``),
-4 decode steps from it, and the ``loss`` forward; in float32
-(``dtype = param_dtype = float32``) against the reference under
-``jax.jit`` at atol = rtol = 1e-4 with the greedy tokens equal, and in
-the configs' own bfloat16 at the reference's 2e-2
+For every arch's smoke config (llava with ``patch_embeds``, seamless
+with ``frame_embeds``): the prefill's last-position logits and its whole
+cache (K/V and lengths, recurrent states, cross K/V, the shared block's
+caches), 4 decode steps from it, and the ``loss`` forward (with the MoE
+aux loss); in float32 (``dtype = param_dtype = float32``) against the
+reference under ``jax.jit`` at atol = rtol = 1e-4 with the greedy tokens
+equal, and in the configs' own bfloat16 at the reference's 2e-2
 (``tests/test_models.py``) against the reference run op by op
 (``jax.disable_jit``): XLA's fusions under ``jit`` round bfloat16
 differently from the reference's own ops (up to 0.039 on yi-6b's smoke
 logits, past 2e-2), where the port's ops round as the reference's do.
 Also a vocabulary of 500 (the padded rows' mask), a decode that starts
 from the reference's prefill cache (``interop.lm_cache_from_numpy``),
-the families not built yet, and what a decode does to its cache.
+and what a decode does to its cache.  ``tests/test_torch_lm_moe.py`` and
+``tests/test_torch_lm_ssm.py`` run the same checks on the ``moe``,
+``ssm`` and ``hybrid`` archs (the reference's first op-by-op run of an
+arch compiles its ops, ~30 s, so the archs are spread over the files).
 """
 import numpy as np
 import pytest
@@ -32,7 +36,8 @@ from repro_torch.configs import ARCHS, get_arch  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import KVCache  # noqa: E402
-from repro_torch.models.model import LM, build_model  # noqa: E402
+from repro_torch.models.model import LM, Seq2Seq, build_model  # noqa: E402
+from repro_torch.models.ssm import SLSTMState, SSMState  # noqa: E402
 
 DECODERS = ("olmo-1b", "stablelm-1.6b", "mistral-nemo-12b", "yi-6b",
             "llava-next-34b")
@@ -59,25 +64,33 @@ def numpy_tree(tree):
         if jnp.issubdtype(p.dtype, jnp.floating) else np.asarray(p), tree)
 
 
+FRAMES = 6                   # the encoder-decoder's frames
+
+
 def inputs(config, seed=0):
+    """Tokens, labels and the frontend's embeddings (``patch_embeds`` or
+    ``frame_embeds``, else None) from a numpy seed."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, config.vocab_size, (B, T)).astype(np.int32)
     labels = rng.integers(0, config.vocab_size, (B, T)).astype(np.int32)
-    patches = None
+    extra = None
     if config.frontend == "patch_stub":
-        patches = rng.standard_normal(
-            (B, config.n_frontend_tokens, config.d_model)).astype(np.float32)
-    return tokens, labels, patches
+        extra = {"patch_embeds": rng.standard_normal(
+            (B, config.n_frontend_tokens, config.d_model)).astype(np.float32)}
+    if config.frontend == "audio_stub":
+        extra = {"frame_embeds": rng.standard_normal(
+            (B, FRAMES, config.d_model)).astype(np.float32)}
+    return tokens, labels, extra
 
 
-def batches(tokens, labels, patches, n):
+def batches(tokens, labels, extra, n):
     ref = {"tokens": jnp.asarray(tokens[:, :n]),
            "labels": jnp.asarray(labels[:, :n])}
     port = {"tokens": torch.as_tensor(tokens[:, :n]),
             "labels": torch.as_tensor(labels[:, :n])}
-    if patches is not None:
-        ref["patch_embeds"] = jnp.asarray(patches)
-        port["patch_embeds"] = torch.as_tensor(patches)
+    for key, value in (extra or {}).items():
+        ref[key] = jnp.asarray(value)
+        port[key] = torch.as_tensor(value)
     return ref, port
 
 
@@ -87,9 +100,9 @@ def reference_run(name, dtype, seed=1, **overrides):
     ref_config, config = pair(name, dtype, **overrides)
     model = ref_build(ref_config)
     params = model.init(jax.random.PRNGKey(seed))
-    tokens, labels, patches = inputs(ref_config)
-    pre, _ = batches(tokens, labels, patches, T0)
-    full, _ = batches(tokens, labels, patches, T)
+    tokens, labels, extra = inputs(ref_config)
+    pre, _ = batches(tokens, labels, extra, T0)
+    full, _ = batches(tokens, labels, extra, T)
     prefill = model.prefill
     decode = model.decode_step
     loss = model.loss
@@ -106,8 +119,8 @@ def reference_run(name, dtype, seed=1, **overrides):
             out["decode"].append(np.asarray(logits, np.float32))
         total, metrics = loss(params, full)
     out.update(loss=float(total), ce=float(metrics["ce"]),
-               params=numpy_tree(params), config=config, tokens=tokens,
-               labels=labels, patches=patches)
+               aux=float(metrics["aux"]), params=numpy_tree(params),
+               config=config, tokens=tokens, labels=labels, extra=extra)
     return out
 
 
@@ -137,22 +150,36 @@ def port_model(ref):
     return model, params
 
 
-@pytest.mark.parametrize("dtype", sorted(TOL))
-@pytest.mark.parametrize("name", DECODERS)
-def test_prefill_decode_and_loss_match_the_reference(run_of, name, dtype):
-    ref = run_of(name, dtype)
+def cache_leaves(cache):
+    """(path, leaf) of a cache: tensors (or numpy arrays) and lengths."""
+    return cm.tree_leaves_with_path(
+        cache, lambda x: isinstance(x, (torch.Tensor, np.ndarray, int)))
+
+
+def close_caches(want, got, dtype: str) -> None:
+    """Every leaf of the reference's numpy cache against the port's: the
+    same paths, floats within ``TOL[dtype]``, each stacked length equal
+    to the port's one int."""
+    want, got = cache_leaves(want), cache_leaves(got)
+    assert [p for p, _ in want] == [p for p, _ in got]
+    for (path, a), (_, b) in zip(want, got):
+        if isinstance(b, int):
+            assert path.endswith("length") and (a == b).all(), path
+        else:
+            assert a.shape == tuple(b.shape), path
+            close(a, b, dtype)
+
+
+def check_against_the_reference(ref, dtype: str) -> None:
+    """The port with ``ref``'s weights against ``ref``'s run: prefill
+    logits and cache, 4 decode steps, the loss and its aux term."""
     model, params = port_model(ref)
-    _, pre = batches(ref["tokens"], ref["labels"], ref["patches"], T0)
-    _, full = batches(ref["tokens"], ref["labels"], ref["patches"], T)
+    _, pre = batches(ref["tokens"], ref["labels"], ref["extra"], T0)
+    _, full = batches(ref["tokens"], ref["labels"], ref["extra"], T)
     logits, cache = model.prefill(params, pre, max_len=T)
     assert logits.dtype == ref["config"].dtype
     close(ref["prefill"], logits, dtype)
-    (ref_kv,) = ref["cache"]["unit"]
-    (kv,) = cache["unit"]
-    assert ref["cache"]["prefix"] == cache["prefix"] == []
-    assert kv.length == T0 and (ref_kv.length == T0).all()
-    close(ref_kv.k, kv.k, dtype)
-    close(ref_kv.v, kv.v, dtype)
+    close_caches(ref["cache"], cache, dtype)
     tokens = ref["tokens"]
     for i, want in zip(range(T0, T), ref["decode"]):
         logits, cache = model.decode_step(
@@ -164,54 +191,52 @@ def test_prefill_decode_and_loss_match_the_reference(run_of, name, dtype):
     tol = TOL[dtype]
     assert abs(float(metrics["ce"]) - ref["ce"]) <= tol + tol * abs(ref["ce"])
     assert abs(float(total) - ref["loss"]) <= tol + tol * abs(ref["loss"])
-    assert float(metrics["aux"]) == 0.0
+    assert abs(float(metrics["aux"]) - ref["aux"]) <= tol + tol * ref["aux"]
+    assert (ref["aux"] > 0) == (ref["config"].family == "moe")
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("name", DECODERS + ("seamless-m4t-large-v2",))
+def test_prefill_decode_and_loss_match_the_reference(run_of, name, dtype):
+    check_against_the_reference(run_of(name, dtype), dtype)
 
 
 def test_padded_vocab_rows_are_masked():
     ref = reference_run("mistral-nemo-12b", "float32", vocab_size=500)
     assert ref["config"].padded_vocab == 512
     model, params = port_model(ref)
-    _, pre = batches(ref["tokens"], ref["labels"], ref["patches"], T0)
+    _, pre = batches(ref["tokens"], ref["labels"], ref["extra"], T0)
     logits, _ = model.prefill(params, pre, max_len=T)
     assert (logits[..., 500:] == -1e30).all()
     assert (ref["prefill"][..., 500:] == -1e30).all()
     close(ref["prefill"], logits, "float32")
-    _, full = batches(ref["tokens"], ref["labels"], ref["patches"], T)
+    _, full = batches(ref["tokens"], ref["labels"], ref["extra"], T)
     total, _ = model.loss(params, full)
     assert abs(float(total) - ref["loss"]) <= 1e-4 + 1e-4 * ref["loss"]
 
 
-def test_decode_from_the_reference_prefill_cache(run_of):
-    ref = run_of("yi-6b", "float32")
+def check_decode_from_the_reference_cache(ref, name: str) -> None:
+    """A decode step from ``ref``'s prefill cache carried across
+    (``interop.lm_cache_from_numpy``), against the reference's step."""
     model, params = port_model(ref)
     cache = interop.lm_cache_from_numpy(ref["cache"], ref["config"],
                                         device=CPU)
+    close_caches(ref["cache"], cache, "float32")
     # ref["cache"] is the reference prefill's cache: decode one step on
-    ref_model = ref_build(pair("yi-6b", "float32")[0])
+    ref_model = ref_build(pair(name, "float32")[0])
     ref_params = jax.tree_util.tree_map(jnp.asarray, ref["params"])
     ref_cache = jax.tree_util.tree_map(jnp.asarray, ref["cache"])
     token = np.full((B, 1), 7, np.int32)
-    want, _ = jax.jit(ref_model.decode_step)(ref_params, jnp.asarray(token),
-                                             ref_cache)
+    want, ref_cache = jax.jit(ref_model.decode_step)(
+        ref_params, jnp.asarray(token), ref_cache)
     got, cache = model.decode_step(params, torch.as_tensor(token), cache)
     close(np.asarray(want, np.float32), got, "float32")
-    assert cache["unit"][0].length == T0 + 1
+    close_caches(numpy_tree(ref_cache), cache, "float32")
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "arctic-480b",
-                                  "xlstm-125m", "zamba2-2.7b",
-                                  "seamless-m4t-large-v2"])
-def test_families_not_built_raise_before_any_parameter(name, monkeypatch):
-    def made(*args, **kw):
-        raise AssertionError("a parameter was made")
-
-    monkeypatch.setattr(cm, "abstract_tree", made)
-    monkeypatch.setattr(cm, "init_tree", made)
-    monkeypatch.setattr(tfm, "backbone_specs", made)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        build_model(get_arch(name).smoke_config(), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        build_model(get_arch(name).config, device=CPU)
+@pytest.mark.parametrize("name", ["yi-6b", "seamless-m4t-large-v2"])
+def test_decode_from_the_reference_prefill_cache(run_of, name):
+    check_decode_from_the_reference_cache(run_of(name, "float32"), name)
 
 
 def test_no_card_and_no_device_raises(monkeypatch):
@@ -243,6 +268,60 @@ def test_a_decode_step_consumes_its_cache():
     assert torch.equal(given.k[:, :, :5], before[:, :, :5])
     with pytest.raises(ValueError, match="past the cache"):
         model.decode_step(params, tokens[:, :1], out)
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
+def test_a_decode_step_updates_its_states_in_place(name):
+    """Recurrent states (``SSMState``, ``SLSTMState``), the shared block's
+    caches and the decoder's cross K/V: the step copies its new states
+    into the tensors of the cache it is given and returns those same
+    tensors (cross K/V unchanged), as it writes K/V."""
+    config = get_arch(name).smoke_config()
+    model = build_model(config, device=CPU)
+    params = model.init(torch.Generator().manual_seed(0))
+    gen_ = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, config.vocab_size, (B, 5), generator=gen_)
+    batch = {"tokens": tokens}
+    if config.frontend == "audio_stub":
+        batch["frame_embeds"] = torch.randn((B, 4, config.d_model),
+                                            generator=gen_)
+    _, cache = model.prefill(params, batch, max_len=6)
+    given = cache_leaves(cache)
+    before = {p: t.clone() for p, t in given if isinstance(t, torch.Tensor)}
+    _, out = model.decode_step(params, tokens[:, :1], cache)
+    kinds = {type(c) for c in cache["unit"]}
+    assert kinds == {"xlstm-125m": {SSMState, SLSTMState},
+                     "zamba2-2.7b": {SSMState},
+                     "seamless-m4t-large-v2": {dict}}[name]
+    assert isinstance(model, Seq2Seq) == (name == "seamless-m4t-large-v2")
+    changed = set()
+    for (path, a), (_, b) in zip(given, cache_leaves(out)):
+        if isinstance(a, int):
+            assert path.endswith("length") and (a, b) == (5, 6), path
+            continue
+        assert b is a, path
+        if not torch.equal(a, before[path]):
+            changed.add(path.split(".")[-1])
+    assert changed == {"xlstm-125m": {"conv", "ssd", "h", "c", "n", "m"},
+                       "zamba2-2.7b": {"conv", "ssd", "k", "v"},
+                       "seamless-m4t-large-v2": {"k", "v"}}[name]
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_build_model_builds_every_arch(name):
+    """All ten archs at full size on the CPU, parameters on ``meta``
+    (nothing drawn): the reference's class and every leaf of the specs."""
+    config = ARCHS[name].config
+    model = build_model(config, device=CPU)
+    assert type(model).__name__ == type(ref_build(
+        ref_get_arch(name).config)).__name__
+    specs = dict(cm.tree_leaves_with_path(model.param_specs(), cm.is_spec))
+    state = model.state_dict()
+    assert sorted(state) == sorted(specs)
+    for path, t in state.items():
+        assert t.device.type == "meta" and tuple(t.shape) == \
+            specs[path].shape and t.dtype == config.param_dtype, path
 
 
 def test_state_dict_keys_are_the_reference_paths(run_of):
@@ -311,8 +390,9 @@ def test_init_draws_each_leaf_in_its_type():
 
 @pytest.mark.parametrize("mode", ["prefill", "decode"])
 def test_backbone_with_a_prefix_and_a_shared_block(mode):
-    """The plan's unrolled prefix and shared block (no family built yet
-    uses them) against the reference's backbone, float32."""
+    """An unrolled prefix and a shared block around a two-block unit of
+    attention blocks (a plan of no arch) against the reference's
+    backbone, float32."""
     ref_config, config = pair("yi-6b", "float32")
     plan = ref_tfm.LayerPlan(("attn_mlp",), ("attn_mlp", "attn_mlp"), 2,
                              "attn_mlp")

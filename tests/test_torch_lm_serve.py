@@ -1,6 +1,8 @@
 """The LM server against the JAX package's: ``BatchedServer.serve`` gives
 the reference's tokens for ragged prompts on 2 slots, with the
-reference's weights carried across, in float32 (``dtype = param_dtype =
+reference's weights carried across, in float32, for a decoder, the
+``vlm``, the ``moe`` (both styles), ``ssm``, ``hybrid`` and ``audio``
+(zeros as the stub's frame embeddings) archs (``dtype = param_dtype =
 float32``: greedy tokens equal; the logits of every step agree within
 atol = rtol = 1e-4, ``tests/test_torch_lm_models.py``); and the CLI on
 the CPU."""
@@ -30,7 +32,10 @@ def requests(module, vocab: int):
             for i, n in enumerate(MAX_NEW)]
 
 
-@pytest.mark.parametrize("name", ["mistral-nemo-12b", "llava-next-34b"])
+@pytest.mark.parametrize("name", ["mistral-nemo-12b", "llava-next-34b",
+                                  "deepseek-moe-16b", "arctic-480b",
+                                  "xlstm-125m", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
 def test_serve_gives_the_reference_tokens(name):
     ref_config = ref_get_arch(name).smoke_config().replace(
         dtype=jnp.float32, param_dtype=jnp.float32)
@@ -70,8 +75,9 @@ def test_server_without_a_card_or_a_device_raises(monkeypatch):
         serve.BatchedServer(get_arch("yi-6b").smoke_config(), n_slots=1)
 
 
-def test_cli_on_the_cpu(capsys):
-    serve.main(["--arch", "stablelm-1.6b", "--smoke", "--requests", "3",
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "xlstm-125m"])
+def test_cli_on_the_cpu(capsys, name):
+    serve.main(["--arch", name, "--smoke", "--requests", "3",
                 "--prompt-len", "5", "--max-new", "2", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("served 3 requests, 6 tokens") and \
