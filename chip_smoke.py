@@ -127,7 +127,23 @@ against scipy's connected components:
   prefill/decode consistency in float32 at 2 layers (4 for xlstm, 6 for
   zamba2, 2 + 2 for seamless, 1 for arctic; bfloat16 printed), and the
   smoke config on the card against CPU tensors.  None of them launches
-  a kernel of the port.  The graphs are made after them.
+  a kernel of the port;
+* then the training path (``train_path``): ``repro_torch.train``'s step
+  (AdamW, the backward through ``torch.autograd.grad``, remat ``full``)
+  on olmo-1b at full width and depth (16 layers, 1,177,026,560 float32
+  parameters and both moments drawn on the card) over
+  ``launch.train.build_batch_fn``'s batches of 8 x 2048 tokens: a
+  warm-up step, 3 steps timed one by one beside the step's bound
+  (``roofline.model_flops`` at the bf16 rate plus AdamW's bytes), one
+  under ``torch.profiler``, the peak memory, every loss and grad norm
+  finite and the loss falling, the aten ops' device time; at 2 layers a
+  step run twice and remat ``full`` against ``none`` bit for bit,
+  ``grad_accum=2`` against 1, ``run_with_recovery`` with two faults and
+  ``train_loop`` resumed from its checkpoint (on local disk) against the
+  run that never stopped, bit for bit; and one
+  step of every arch's smoke config in float32 on the card against CPU
+  tensors.  It launches no kernel of the port.  The graphs are made
+  after it.
 
 Every phase prints one JSON line with its seconds; any failed check
 raises and the script exits non-zero.  The lines before the last are the
@@ -174,7 +190,7 @@ from repro_torch import (Graph, StreamingConnectivity, solve,  # noqa: E402
                          solve_batch, stack_graphs)
 from repro_torch import interop  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import ARCHS, get_arch  # noqa: E402
 from repro_torch.connectivity import SAMPLING_STRATEGIES, minmap  # noqa: E402
 from repro_torch.connectivity import fastsv  # noqa: E402
 from repro_torch.connectivity import oocore  # noqa: E402
@@ -199,13 +215,19 @@ from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
 from repro_torch.kernels.fused_rmsnorm import \
     kernel as rms_kernel  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
+from repro_torch.launch.train import build_batch_fn, train_loop  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import common as lm_common  # noqa: E402
 from repro_torch.models import mlp as lm_mlp  # noqa: E402
 from repro_torch.models import transformer as lm_tfm  # noqa: E402
 from repro_torch.models.model import build_model, lm_param_specs  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.roofline import count_params, model_flops  # noqa: E402
+from repro_torch.train import (init_train_state,  # noqa: E402
+                               make_train_step)
 from repro_torch.runtime import (FaultInjector, Mesh,  # noqa: E402
-                                 ShardLossFault, SimulatedFault)
+                                 ShardLossFault, SimulatedFault,
+                                 run_with_recovery)
 from repro_torch.serving import ConnectivityEngine  # noqa: E402
 from repro_torch.serving.simulate import (  # noqa: E402
     WorkloadSpec, make_ingest_plan, run_simulation)
@@ -362,6 +384,50 @@ LM_FAMILIES_BUDGET_S = 240.0
 # float32 gives 2.2e-5 and 1.2e-5; PERF.md); its weights, drawn anew,
 # at most this many bytes (else one repetition of the unit)
 LM_F32_CHECK_BYTES = 60e9
+# the training path (train_path, right after lm_families): olmo-1b at full
+# width and depth (configs/olmo_1b.py: float32 parameters and moments,
+# bf16 compute, remat "full"), batches of 8 sequences of 2048 tokens (its
+# context) from launch.train.build_batch_fn; a warm-up step, then
+# TRAIN_STEPS steps timed one by one (CUDA events), one more under
+# torch.profiler
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_STEPS = 3
+TRAIN_SEED = 0
+# OLMo-1B's peak learning rate (arXiv:2402.00838, 4e-4) reached over 10
+# steps (at 1e-3 reached in 2 steps the loss rose to 15.4 at the fourth
+# step on an H100: PERF.md §6)
+TRAIN_OPT = OptConfig(peak_lr=4e-4, warmup_steps=10, decay_steps=100)
+# AdamW's bytes a parameter: the parameter, its gradient and both
+# moments read, the parameter and both moments written, float32 each
+ADAMW_BYTES_A_PARAM = 7 * 4
+# the checks at 2 of olmo-1b's 16 layers (full width): remat "full"
+# against "none" and grad_accum 2 against 1 at the timed batch's shape;
+# the recovery and resume runs (TRAIN_CHECK_STEPS steps, checkpoints on
+# local disk every TRAIN_CHECKPOINT_EVERY, faults before the steps of
+# TRAIN_FAIL_AT) at batches of 2 x 512
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 512
+TRAIN_CHECK_STEPS = 6
+TRAIN_CHECKPOINT_EVERY = 2
+TRAIN_FAIL_AT = (3, 5)
+# grad_accum=2 against grad_accum=1 on the card (bf16 compute): the loss
+# and grad_norm at these relative limits, the parameters at the
+# reference's own test_grad_accum_matches_full_batch limits.  The card
+# showed a loss equal bit for bit, grad norms 1.8e-5 apart and parameters
+# 7.9e-5 apart (AdamW's first update, lr 4e-5, is g/|g|: one coordinate's
+# sign, 2 lr); with the embedding's gradient summed in bfloat16, as the
+# reference's scatter-add sums it, the grad norms were 1.45e-2 apart
+# (H100 80GB HBM3, 700 W; PERF.md §6)
+TRAIN_ACCUM_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4,
+                   "param_atol": 2e-3, "param_rtol": 1e-2}
+# the card against CPU tensors, one step of every arch's smoke config in
+# float32 from one carried-across state: the CPU tests' limits
+# (tests/test_torch_train_step.py)
+TRAIN_CPU_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4,
+                 "param_atol": 2e-3, "param_rtol": 1e-2}
+# the time the training phase is meant to take at most (reported)
+TRAIN_BUDGET_S = 120.0
 # kernel against plain version in float32, (atol, rtol, rms_rel) by working
 # type: every element within |a - b| <= atol + rtol * |b|, and the whole
 # output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
@@ -4165,6 +4231,315 @@ def phase_lm_families(card: str) -> list:
     return runs
 
 
+def train_bounds(model, n_params: int) -> dict:
+    """The least time of one train step of ``model`` on
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens: ``model_flops``'s 6·N·D at
+    the bf16 tensor-core rate plus AdamW's bytes over the HBM rate; and
+    the FLOPs that the count leaves out: the tied head's products (6 a
+    weight a token), attention's T² products (QKᵀ and PV, forward and
+    backward: 3 x 4·B·H·T²·hd a layer, all of T² as ``attend_full``
+    computes them) and remat's second forward (2·N·D)."""
+    config = model.config
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(model, "train", TRAIN_SEQ, TRAIN_BATCH)
+    adamw_bytes = ADAMW_BYTES_A_PARAM * n_params
+    flops_ms = flops / BF16_TENSOR_OPS_PER_S * 1e3
+    adamw_ms = adamw_bytes / HBM_BYTES_PER_S * 1e3
+    head = 6.0 * config.d_model * config.padded_vocab * tokens
+    attention = 3 * 4.0 * TRAIN_BATCH * config.n_heads * TRAIN_SEQ ** 2 \
+        * config.hd * config.n_layers
+    remat = 2.0 * count_params(model) * tokens \
+        if config.remat != "none" else 0.0
+    return {"model_flops": flops, "flops_bound_ms": flops_ms,
+            "adamw_bytes": adamw_bytes, "adamw_bound_ms": adamw_ms,
+            "bound_ms": flops_ms + adamw_ms,
+            "left_out_flops": {"tied_head": head, "attention_t2": attention,
+                               "remat_forward": remat},
+            "bound_ms_with_left_out": flops_ms + adamw_ms
+            + (head + attention + remat) / BF16_TENSOR_OPS_PER_S * 1e3}
+
+
+# aten ops whose device time is a product's (the tensor-core GEMMs)
+PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def op_split(fn, top: int = 15) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the aten ops' own
+    device time, the ``top`` largest by name with their calls, and the
+    products' (``PRODUCT_OPS``) share of the whole."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    ops.sort(key=device_us, reverse=True)
+    total = sum(device_us(e) for e in ops)
+    products = sum(device_us(e) for e in ops if e.key in PRODUCT_OPS)
+    return {"device_ms": total / 1e3, "products_ms": products / 1e3,
+            "products_share": products / total if total else None,
+            "top": [{"op": e.key, "calls": e.count,
+                     "device_ms": device_us(e) / 1e3} for e in ops[:top]]}
+
+
+def train_leaves(state) -> list:
+    return lm_common.tree_leaves_with_path(tuple(state), torch.is_tensor)
+
+
+def same_training(a, b, what: str) -> None:
+    """Two training states, every leaf bit for bit."""
+    for (path, x), (_, y) in zip(train_leaves(a), train_leaves(b)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: {path} differs "
+                                 f"(max |diff| {float((x - y).abs().max())})")
+
+
+def train_close(a, b, tol: dict) -> dict:
+    """The largest |diff| of two training states' parameters, and whether
+    every element lies within ``param_atol + param_rtol |b|``."""
+    worst, excess = 0.0, -np.inf
+    for (_, x), (_, y) in zip(lm_common.tree_leaves_with_path(
+            a.params, torch.is_tensor), lm_common.tree_leaves_with_path(
+            b.params, torch.is_tensor)):
+        x, y = x.float().cpu(), y.float().cpu()
+        diff = (x - y).abs()
+        worst = max(worst, float(diff.max()))
+        excess = max(excess, float((diff - tol["param_atol"]
+                                    - tol["param_rtol"] * y.abs()).max()))
+    return {"max_abs_diff": worst, "excess": excess}
+
+
+def rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def train_card_vs_cpu(arch: str) -> dict:
+    """One train step of ``arch``'s smoke config in float32 on the card
+    and on CPU tensors, from one carried-across state (seeded numpy
+    weights, zero moments): the loss, ``grad_norm`` and every parameter
+    within ``TRAIN_CPU_TOL``."""
+    config = get_arch(arch).smoke_config().replace(dtype=torch.float32)
+    tree = numpy_lm_params(config, LM_SEED)
+    zeros = lm_common.tree_map(np.zeros_like, tree,
+                               lambda x: isinstance(x, np.ndarray))
+    host = (tree, {"m": zeros, "v": zeros, "step": np.int32(0)})
+    batch = build_batch_fn(config, 2, 16, seed=1, device="cpu")(0)
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        model = build_model(config, device=dev)
+        state = interop.train_state_from_numpy(host, config, TRAIN_OPT,
+                                               device=dev)
+        outs[dev] = make_train_step(model, TRAIN_OPT)(state, batch)
+    (card, m_card), (cpu, m_cpu) = outs[DEVICE], outs["cpu"]
+    close = train_close(card, cpu, TRAIN_CPU_TOL)
+    out = {"arch": arch, "loss_rel": rel(m_card["loss"], m_cpu["loss"]),
+           "grad_norm_rel": rel(m_card["grad_norm"], m_cpu["grad_norm"]),
+           **close}
+    if out["loss_rel"] > TRAIN_CPU_TOL["loss_rtol"] or \
+            out["grad_norm_rel"] > TRAIN_CPU_TOL["grad_norm_rtol"] or \
+            close["excess"] > 0:
+        raise AssertionError(f"train step card against CPU: {out}")
+    return out
+
+
+def train_checks(card: str) -> dict:
+    """olmo-1b at ``TRAIN_CHECK_LAYERS`` layers, full width, on the card
+    as a user runs it (no ``torch.use_deterministic_algorithms``: the
+    step repeats bit for bit without it, which the first check holds):
+    one step run twice, and remat ``full`` against ``none``, bit for bit,
+    ``grad_accum`` 2 against 1 within ``TRAIN_ACCUM_TOL``, at the timed
+    batch's shape; ``run_with_recovery`` with faults at ``TRAIN_FAIL_AT``
+    and ``train_loop`` resumed from its checkpoint, each against
+    ``train_loop`` run straight through, bit for bit, checkpoints on
+    local disk."""
+    config = get_arch(TRAIN_ARCH).config.replace(n_layers=TRAIN_CHECK_LAYERS)
+    model = build_model(config, device=DEVICE)
+    state = init_train_state(
+        model, torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED),
+        TRAIN_OPT)
+    batch = build_batch_fn(config, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED,
+                           device=DEVICE)(0)
+    step = make_train_step(model, TRAIN_OPT)
+    full, again = step(state, batch), step(state, batch)[0]
+    same_training(full[0], again, "a step run twice")
+    del again
+    none = make_train_step(build_model(
+        config.replace(remat="none"), device=DEVICE), TRAIN_OPT)(state, batch)
+    same_training(full[0], none[0], "remat full against none")
+    if not all(torch.equal(full[1][k], none[1][k]) for k in full[1]):
+        raise AssertionError("remat full against none: metrics")
+    del none
+    accum, m2 = make_train_step(model, TRAIN_OPT, 2)(state, batch)
+    m1 = full[1]
+    accum_check = {"loss_rel": rel(m2["loss"], m1["loss"]),
+                   "grad_norm_rel": rel(m2["grad_norm"], m1["grad_norm"]),
+                   **train_close(accum, full[0], TRAIN_ACCUM_TOL),
+                   "tol": TRAIN_ACCUM_TOL}
+    if accum_check["loss_rel"] > TRAIN_ACCUM_TOL["loss_rtol"] or \
+            accum_check["grad_norm_rel"] > TRAIN_ACCUM_TOL["grad_norm_rtol"] \
+            or accum_check["excess"] > 0:
+        raise AssertionError(f"grad_accum 2 against 1: {accum_check}")
+    del accum, full, state
+    recovery = train_recovery(config)
+    torch.cuda.empty_cache()
+    return {"layers": TRAIN_CHECK_LAYERS, "repeatable": True,
+            "remat_full_equals_none": True, "grad_accum": accum_check,
+            **recovery}
+
+
+def train_recovery(config) -> dict:
+    """``run_with_recovery`` (faults at ``TRAIN_FAIL_AT``) and
+    ``train_loop`` resumed from its own checkpoint, each against
+    ``train_loop`` run straight through, bit for bit."""
+    kw = dict(batch=TRAIN_CHECK_BATCH, seq=TRAIN_CHECK_SEQ, log_every=0,
+              opt=TRAIN_OPT, seed=TRAIN_SEED, device=DEVICE)
+    straight = train_loop(config, steps=TRAIN_CHECK_STEPS, **kw)["state"]
+    model = build_model(config, device=DEVICE)
+    step = make_train_step(model, TRAIN_OPT)
+    batch_at = build_batch_fn(config, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
+                              TRAIN_SEED, device=DEVICE)
+    init = init_train_state(
+        model, torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED),
+        TRAIN_OPT)
+    events = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as directory:
+        final, stats = run_with_recovery(
+            lambda state, k: step(state, batch_at(k))[0], init,
+            TRAIN_CHECK_STEPS, CheckpointManager(directory, keep=3,
+                                                 async_save=False),
+            checkpoint_every=TRAIN_CHECKPOINT_EVERY,
+            fault_injector=FaultInjector(fail_at=TRAIN_FAIL_AT),
+            on_event=lambda ev, k: events.append((ev, k)))
+        recovery_s = time.perf_counter() - t0
+        checkpoint_bytes = sum(
+            f.stat().st_size for f in Path(directory).rglob("*.npy"))
+    if stats["restarts"] != len(TRAIN_FAIL_AT):
+        raise AssertionError(f"train recovery: {stats}")
+    same_training(final, straight, "run_with_recovery against straight")
+    del final, init
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_resume_") as directory:
+        half = TRAIN_CHECK_STEPS // 2
+        train_loop(config, steps=half, ckpt_dir=directory,
+                   checkpoint_every=half, **kw)
+        resumed = train_loop(config, steps=TRAIN_CHECK_STEPS,
+                             ckpt_dir=directory, checkpoint_every=half, **kw)
+    resume_s = time.perf_counter() - t0
+    if resumed["steps_run"] != TRAIN_CHECK_STEPS - half:
+        raise AssertionError(f"train_loop resume ran "
+                             f"{resumed['steps_run']} steps")
+    same_training(resumed["state"], straight, "train_loop resume against "
+                  "straight")
+    return {"recovery": {"steps": TRAIN_CHECK_STEPS,
+                         "fail_at": list(TRAIN_FAIL_AT), "events": events,
+                         **stats, "seconds": recovery_s,
+                         "kept_checkpoint_bytes": checkpoint_bytes,
+                         "bit_for_bit": True},
+            "resume": {"from_step": half, "steps_run": resumed["steps_run"],
+                       "seconds": resume_s, "bit_for_bit": True}}
+
+
+def phase_train(card: str) -> list:
+    """The training path at olmo-1b's full width and depth: the state
+    drawn on the card, a warm-up step, ``TRAIN_STEPS`` steps timed one
+    by one (every launch count 0 before, none after: the path launches
+    none of the port's kernels), one more step under ``torch.profiler``,
+    the peak memory, the bounds (:func:`train_bounds`); every loss and
+    ``grad_norm`` finite and the last timed loss below the first step's;
+    then :func:`train_checks` at 2 layers and :func:`train_card_vs_cpu`
+    on every arch's smoke config.  Returns the run whose launches (all
+    0) the kernels line sums."""
+    t_phase = time.perf_counter()
+    config = get_arch(TRAIN_ARCH).config
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(config, device=DEVICE)
+    state = init_train_state(
+        model, torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED),
+        TRAIN_OPT)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch_at = build_batch_fn(config, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED,
+                              device=DEVICE)
+    step = make_train_step(model, TRAIN_OPT)
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch_at(0))
+    first_loss = float(metrics["loss"])
+    warm_s = time.perf_counter() - t0
+    losses, norms, walls, pairs = [first_loss], \
+        [float(metrics["grad_norm"])], [], []
+    sync()
+    reset_launch_counts()
+    for k in range(1, TRAIN_STEPS + 1):
+        batch = batch_at(k)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        sync()
+        walls.append(time.perf_counter() - t0)
+        pairs.append((start, end))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the train path launched kernels: {launches}")
+    step_ms = [a.elapsed_time(b) for a, b in pairs]
+    batch = batch_at(TRAIN_STEPS + 1)
+    profiled = device_idle(lambda: step(state, batch))
+    peak = torch.cuda.max_memory_allocated()
+    split = op_split(lambda: step(state, batch))
+    bounds = train_bounds(model, n_params)
+    non_embedding = count_params(model)
+    mean_ms = sum(step_ms) / len(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    run = {"phase": "train_path", "nvidia_smi": card, "arch": TRAIN_ARCH,
+           "n_layers": config.n_layers, "d_model": config.d_model,
+           "n_params": n_params, "count_params": non_embedding,
+           "dtype": str(config.dtype), "param_dtype": str(config.param_dtype),
+           "moment_dtype": str(TRAIN_OPT.moment_dtype),
+           "remat": config.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "tokens_a_step": tokens, "init_s": init_s,
+           "warm_step_s": warm_s, "step_ms": step_ms, "step_ms_mean": mean_ms,
+           "step_wall_ms": [w * 1e3 for w in walls],
+           "tokens_per_s": tokens / (mean_ms / 1e3),
+           **bounds, "step_over_bound": mean_ms / bounds["bound_ms"],
+           "losses": losses, "grad_norms": norms, "profiled": profiled,
+           "op_split": split, "peak_bytes": peak, "launches": launches}
+    emit({**run, "phase": "train_path_steps"})
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"train path: losses {losses}, grad norms "
+                             f"{norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train path: the loss did not fall: {losses}")
+    del model, state, metrics, step
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    checks = train_checks(card)
+    checks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = [train_card_vs_cpu(arch) for arch in sorted(ARCHS)]
+    cpu_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    run.update({"checks": checks, "checks_s": checks_s, "card_vs_cpu": cpu,
+                "card_vs_cpu_s": cpu_s, "seconds": seconds,
+                "budget_s": TRAIN_BUDGET_S,
+                "within_budget": seconds <= TRAIN_BUDGET_S})
+    emit(run)
+    return [run]
+
+
 def build_all() -> dict:
     """Build every kernel library, one ``nvcc`` each, all at once."""
     loaders = [module.load_library for _, module in LIBRARIES]
@@ -4234,6 +4609,9 @@ def main(argv=None) -> int:
     # 2d. the other LM families at full width (arctic-480b at 2 layers),
     # one model at a time, each freed before the next
     float_runs += phase_lm_families(card)
+    # 2e. the training path at olmo-1b's full width and depth, then its
+    # checks at 2 layers and the smoke configs card against CPU
+    float_runs += phase_train(card)
 
     # graphs: the sizes of the paper's soc-LiveJournal1 and delaunay_n24
     # for the main and frontier paths, smaller ones for the async path

@@ -12,11 +12,12 @@ The state is a dict (or a list or tuple) of tensors, numpy arrays and
 numpy scalars, which may nest (``StreamingDedup``'s holds its engine's);
 a bare array is a state of one leaf.  Leaves are named and ordered as
 the reference's tree flattening names them: a dict's keys sorted, a
-sequence's indices, joined with ``"__"`` along the path.  Every leaf is
-saved as a host array of its own dtype (a CUDA tensor is copied to the
-host when the save is called).  ``restore`` loads numpy arrays, or
-tensors on the ``device`` it is given; the reference's ``shardings``
-have no meaning on one card.
+NamedTuple's fields in order (``TrainState``'s ``params``, ``opt``), a
+list's or other tuple's indices, joined with ``"__"`` along the path.
+Every leaf is saved as a host array of its own dtype (a CUDA tensor is
+copied to the host when the save is called).  ``restore`` loads numpy
+arrays, or tensors on the ``device`` it is given; the reference's
+``shardings`` have no meaning on one card.
 """
 from __future__ import annotations
 
@@ -34,13 +35,15 @@ from repro_torch.graphs.structs import DeviceLike
 
 def _children(node):
     """``(key, child)`` pairs of a container, in the reference's order
-    (a dict's keys sorted, a list's or tuple's by index); None for a
-    leaf."""
+    (a dict's keys sorted, a NamedTuple's fields, a list's or another
+    tuple's indices); None for a leaf."""
     if isinstance(node, dict):
         for key in node:
             if not isinstance(key, str):
                 raise TypeError(f"checkpoint keys must be str, got {key!r}")
         return [(key, node[key]) for key in sorted(node)]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return list(zip(node._fields, node))
     if isinstance(node, (list, tuple)):
         return [(str(i), child) for i, child in enumerate(node)]
     return None
@@ -67,6 +70,8 @@ def _unflatten_like(like, leaves: Dict[str, Any], prefix: str = ""):
              for key, child in children]
     if isinstance(like, dict):
         return dict(built)
+    if hasattr(like, "_fields"):
+        return type(like)(*(value for _, value in built))
     return type(like)(value for _, value in built)
 
 
@@ -137,7 +142,8 @@ def restore_checkpoint(
               for name, _ in _flatten(like)}
     if device is not None:
         dev = torch.device(device)
-        leaves = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        # np.array keeps a 0-d leaf 0-d (np.ascontiguousarray makes it 1-d)
+        leaves = {k: torch.from_numpy(np.array(a, order="C")).to(dev)
                   for k, a in leaves.items()}
     return _unflatten_like(like, leaves), step
 

@@ -12,7 +12,9 @@ The LM's weights are the other thing that crosses:
 :func:`lm_params_from_numpy` takes the reference's parameter pytree
 (nested dicts and lists of float32 numpy arrays) and returns the port's,
 and :func:`lm_cache_from_numpy` a reference prefill's cache, so that a
-decode can start from it.
+decode can start from it.  :func:`train_state_from_numpy` carries a
+training state (the parameters, AdamW's moments and its step), so that
+both packages train from the same state.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SLSTMState, SSMState
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.model import check_tree, lm_param_specs
+from repro_torch.optim.adamw import OptConfig
+from repro_torch.train.step import TrainState
 
 _SCALARS = (np.ndarray, np.generic, bool, int, float)
 # element types tensor_from_numpy makes, by name
@@ -132,6 +136,38 @@ def lm_params_from_numpy(tree, config: ModelConfig,
     return cm.tree_map_with_path(
         lambda path, a: _float_tensor(a, config.param_dtype, dev, path),
         tree, lambda x: isinstance(x, np.ndarray))
+
+
+def train_state_from_numpy(state, config: ModelConfig, opt_config: OptConfig,
+                           device: DeviceLike = None) -> TrainState:
+    """The port's :class:`~repro_torch.train.step.TrainState` from the
+    reference's, given as ``(params, opt)`` with every float leaf passed
+    through ``np.asarray(x, np.float32)`` (exact for bfloat16 moments)
+    and ``opt["step"]`` through ``np.asarray``: the parameters as
+    :func:`lm_params_from_numpy` gives them, ``m`` and ``v`` in
+    ``opt_config.moment_dtype`` (their trees checked as the parameters'
+    are), ``step`` an int32 scalar, all on ``device``."""
+    params, opt = state
+    if not isinstance(opt, dict) or set(opt) != {"m", "v", "step"}:
+        raise ValueError("opt must be a dict of m, v and step")
+    dev = resolve_device(device)
+    specs = lm_param_specs(config)
+
+    def moments(tree, name):
+        check_tree(tree, specs)
+        return cm.tree_map_with_path(
+            lambda path, a: _float_tensor(a, opt_config.moment_dtype, dev,
+                                          f"{name}.{path}"),
+            tree, lambda x: isinstance(x, np.ndarray))
+
+    step = _require_numpy("step", opt["step"], scalar=True)
+    if step.shape != () or not np.issubdtype(step.dtype, np.integer):
+        raise TypeError(f"step must be an integer scalar, got {step.dtype} "
+                        f"{step.shape}")
+    return TrainState(
+        params=lm_params_from_numpy(params, config, device=dev),
+        opt={"m": moments(opt["m"], "m"), "v": moments(opt["v"], "v"),
+             "step": torch.tensor(int(step), dtype=torch.int32, device=dev)})
 
 
 # a cache's float32 states (the rest of a cache is in config.dtype)

@@ -1,3 +1,3 @@
-"""Launchers of the port: the LM server (``serve``).  The production mesh,
-the dry-run and the training loop wait for their slices (ROADMAP Queue
-A)."""
+"""Launchers of the port: the LM server (``serve``) and the training loop
+(``train``).  The production mesh and the dry-run wait for their slice
+(ROADMAP Queue A item (e))."""

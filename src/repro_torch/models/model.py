@@ -7,7 +7,9 @@ encoder-decoder), each with the reference's surface:
 
   * ``param_specs()``          — pytree of ParamSpec
   * ``init(generator)``        — concrete params (a ``torch.Generator``)
-  * ``loss(params, batch)``    — scalar LM loss (+ MoE aux; forward only)
+  * ``loss(params, batch)``    — scalar LM loss (+ MoE aux), differentiable
+    in the leaves of ``params`` (``repro_torch.train.step`` takes its
+    gradient with ``torch.autograd.grad``)
   * ``prefill(params, batch)`` — (last-position logits, cache)
   * ``decode_step(params, tokens, cache)`` — (logits, cache); consumes
     the cache it is given (it updates it in place)
@@ -17,7 +19,9 @@ the reference: ``patch_embeds`` / ``frame_embeds`` arrive pre-computed at
 ``d_model`` and pass through a learned projection.  Both models are
 ``nn.Module``s whose parameters are the tree's leaves, with the tree's
 paths as ``state_dict()`` keys (``backbone.unit.0.attn.wq``, stacked over
-layers; ``encoder.*``/``decoder.*`` for the encoder-decoder).
+layers; ``encoder.*``/``decoder.*`` for the encoder-decoder).  The
+module's own parameters do not require grad (serving takes them as they
+are); a train step passes a tree of its own leaves that do.
 """
 from __future__ import annotations
 
@@ -61,9 +65,10 @@ def _logits(params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Cross-entropy by a one-hot reduction, in float32 (the reference's)."""
+    """Cross-entropy by a one-hot reduction, in float32 (the reference's;
+    no gradient through the row maximum, as its ``stop_gradient``)."""
     lf = logits.float()
-    m = lf.amax(dim=-1, keepdim=True)
+    m = lf.amax(dim=-1, keepdim=True).detach()
     shifted = lf - m
     lse = torch.log(torch.exp(shifted).sum(dim=-1))
     onehot = nn.functional.one_hot(labels.long(), logits.shape[-1]).float()
@@ -171,6 +176,10 @@ class _Model(nn.Module):
             lambda t: t.to(device=device, dtype=dtype), tree, _is_tensor))
 
     def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        # gathered, then cast (the same values as the reference's cast
+        # table, gathered): the backward sums a token's rows in the table's
+        # float32, where the reference's scatter-add sums them in the
+        # compute type (PERF.md §6)
         return params["embed"]["tok_embed"][tokens.long()].to(
             self.config.dtype)
 
@@ -200,7 +209,7 @@ class LM(_Model):
             x = torch.cat([p, x[:, n:, :]], dim=1)   # patches prepend
         return x
 
-    # -- training (forward only) ------------------------------------------
+    # -- training ----------------------------------------------------------
     def loss(self, params, batch):
         config = self.config
         x = self._embed_inputs(params, batch)
@@ -210,7 +219,8 @@ class LM(_Model):
                                        plan=self.plan)
         logits = _logits(params["embed"], x, config)
         ce = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
-        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+        if not isinstance(aux, torch.Tensor):     # no MoE layer: 0.0
+            aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         total = ce + 0.01 * aux
         return total, {"ce": ce, "aux": aux}
 

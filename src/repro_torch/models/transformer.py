@@ -8,9 +8,10 @@ axis, and an optional ``shared`` block applied after each unit
 repetition with one weight set and a cache per use (Zamba2's shared
 attention).  Where the reference scans over the layer axis, the port
 loops over it with views of the stacked parameters (no copies) and
-returns the stacked cache the scan returns.  Serving has no remat; the
-training mode runs the forward only (its backward comes with the
-training slice).
+returns the stacked cache the scan returns.  In the training mode under
+autograd, one repetition of the unit (with the shared block) is rematted
+as the config says (:func:`remat_unit`), as the reference's scan body
+is; serving has no remat.
 
 A block's cache is any of: a :class:`~repro_torch.models.attention.
 KVCache`; an :class:`~repro_torch.models.ssm.SSMState` (Mamba2, mLSTM) or
@@ -31,6 +32,7 @@ import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -407,6 +409,34 @@ def _layer(tree, i: int):
                        lambda x: isinstance(x, torch.Tensor))
 
 
+# the 2-D products, which "dots" keeps (jax.checkpoint_policies.
+# checkpoint_dots_with_no_batch_dims): x @ w reaches aten as mm
+_DOTS = {torch.ops.aten.mm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_unit(fn, remat: str):
+    """``fn`` (one repetition of the unit) under the config's ``remat``:
+    ``"full"`` keeps nothing inside it for the backward (it is run again),
+    ``"dots"`` keeps the outputs of the 2-D products and runs the rest
+    again, ``"none"`` is ``fn`` itself.  The values are the same in all
+    three."""
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, dots or full, got {remat!r}")
+    kwargs = {} if remat == "full" else {
+        "context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)}
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                             **kwargs)
+
+
 def backbone_apply(params, x: torch.Tensor, ctx: BlockCtx, cache=None,
                    plan: Optional[LayerPlan] = None):
     """Run all layers. Returns (x, new_cache, aux_loss_sum).
@@ -439,16 +469,31 @@ def backbone_apply(params, x: torch.Tensor, ctx: BlockCtx, cache=None,
     shared_in = cache.get("shared") if decode else None
     unit_out = [[] for _ in plan.unit]
     shared_out = []
-    for i in range(plan.n_repeat):
+
+    def repetition(i, x, aux_sum):
+        outs = []
         for j, btype in enumerate(plan.unit):
             c_in = _layer_view(unit_in[j], i) if decode else None
             x, c_out, aux = run(btype, _layer(params["unit"][j], i), x, c_in)
-            aux_total = aux_total + aux
-            unit_out[j].append(c_out)
+            aux_sum = aux_sum + aux
+            outs.append(c_out)
+        shared = None
         if plan.shared is not None:
             c_in = _layer_view(shared_in, i) if decode else None
-            x, c_out, _ = run(plan.shared, params["shared"], x, c_in)
-            shared_out.append(c_out)
+            x, shared, _ = run(plan.shared, params["shared"], x, c_in)
+        return x, aux_sum, outs, shared
+
+    if ctx.mode == "train" and torch.is_grad_enabled():
+        body = remat_unit(lambda i, x, a: repetition(i, x, a)[:2],
+                          config.remat)
+        for i in range(plan.n_repeat):
+            x, aux_total = body(i, x, aux_total)
+    else:
+        for i in range(plan.n_repeat):
+            x, aux_total, outs, shared = repetition(i, x, aux_total)
+            for j, c_out in enumerate(outs):
+                unit_out[j].append(c_out)
+            shared_out.append(shared)
 
     if decode:
         # the layers updated views of the stacked tensors

@@ -1804,3 +1804,81 @@ def test_attend_chunked_against_flash_mha(cuda, t):
     assert float((diff - 4e-3 - 1e-2 * want.abs()).max()) <= 0
     assert float(diff.square().mean().sqrt()) <= \
         5e-4 * float(want.square().mean().sqrt())
+
+
+def _train_start(name, dev, **overrides):
+    """A model of ``name``'s smoke config (float32 compute) on ``dev`` and
+    one carried-across state (seeded numpy weights, zero moments)."""
+    from repro_torch import interop
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import common as cm
+    from repro_torch.optim import OptConfig
+
+    config = get_arch(name).smoke_config().replace(
+        **{"dtype": torch.float32, **overrides})
+    tree = _numpy_lm_params(config, 0)
+    zeros = cm.tree_map(np.zeros_like, tree,
+                        lambda x: isinstance(x, np.ndarray))
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=10)
+    state = interop.train_state_from_numpy(
+        (tree, {"m": zeros, "v": zeros, "step": np.int32(0)}), config, opt,
+        device=dev)
+    return build_model(config, device=dev), state, opt
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "deepseek-moe-16b",
+                                  "xlstm-125m", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, name):
+    """Two train steps of the smoke config in float32 on the card and on
+    CPU tensors from one state: the losses and grad norms, and every
+    parameter at the CPU tests' limits (atol 2e-3, rtol 1e-2)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import build_batch_fn
+    from repro_torch.models import common as cm
+    from repro_torch.train import make_train_step
+
+    batch_at = build_batch_fn(get_arch(name).smoke_config(), 2, 16, seed=1,
+                              device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        model, state, opt = _train_start(name, dev)
+        step = make_train_step(model, opt)
+        metrics = []
+        for k in range(2):
+            state, m = step(state, batch_at(k))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[str(dev)] = state, metrics
+    (cpu, m_cpu), (card, m_card) = out["cpu"], out[str(cuda)]
+    for a, b in zip(m_cpu, m_card):
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-5)
+        assert b["grad_norm"] == pytest.approx(a["grad_norm"], rel=5e-3)
+    for (path, a), (_, b) in zip(
+            cm.tree_leaves_with_path(cpu.params, torch.is_tensor),
+            cm.tree_leaves_with_path(card.params, torch.is_tensor)):
+        torch.testing.assert_close(b.cpu(), a, atol=2e-3, rtol=1e-2,
+                                   msg=path)
+
+
+def test_remat_on_the_card_is_bit_for_bit(cuda):
+    """olmo-1b's smoke config in its bfloat16 compute on the card: remat
+    ``full`` and ``dots`` give ``none``'s step bit for bit (the card
+    repeats a step bit for bit as it is)."""
+    from repro_torch.launch.train import build_batch_fn
+    from repro_torch.models import common as cm
+    from repro_torch.train import make_train_step
+
+    outs = {}
+    for remat in ("none", "dots", "full"):
+        model, state, opt = _train_start("olmo-1b", cuda, remat=remat,
+                                         dtype=torch.bfloat16)
+        batch = build_batch_fn(model.config, 4, 32, device=cuda)(0)
+        outs[remat] = make_train_step(model, opt)(state, batch)
+    for remat in ("dots", "full"):
+        for (path, a), (_, b) in zip(
+                cm.tree_leaves_with_path(tuple(outs["none"][0]),
+                                         torch.is_tensor),
+                cm.tree_leaves_with_path(tuple(outs[remat][0]),
+                                         torch.is_tensor)):
+            assert torch.equal(a, b), (remat, path)

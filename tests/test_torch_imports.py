@@ -53,7 +53,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                    "runtime.elastic", "data.pipeline", "models.common",
                    "models.attention", "models.mlp", "models.transformer",
                    "models.model", "configs.base",
-                   "configs.mistral_nemo_12b", "launch.serve"):
+                   "configs.mistral_nemo_12b", "launch.serve",
+                   "optim.adamw", "train.step", "launch.train",
+                   "roofline.analysis"):
         assert f"repro_torch.{module}" in modules
     code = (
         "import importlib, sys\n"
