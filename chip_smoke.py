@@ -142,8 +142,23 @@ against scipy's connected components:
   ``train_loop`` resumed from its checkpoint (on local disk) against the
   run that never stopped, bit for bit; and one
   step of every arch's smoke config in float32 on the card against CPU
-  tensors.  It launches no kernel of the port.  The graphs are made
-  after it.
+  tensors.  It launches no kernel of the port;
+* then the LM on a mesh (``lm_mesh``): on a 1-rank NCCL mesh in this
+  process (FileStore rendezvous), one olmo-1b train step at full width
+  and depth from the state of the mesh-less step (loss, grad norm and
+  parameters within ``TRAIN_CPU_TOL``, whether bit for bit printed, its
+  CUDA-event ms beside the mesh-less step's) and mistral-nemo-12b's
+  serving config (``tp``) prefilling 4096 tokens and decoding 16 greedy
+  tokens, which must equal the mesh-less ones; then ``LM_MESH_RANKS``
+  gloo ranks sharing the card on ``make_host_mesh(2)``, full width, 2
+  layers, float32: olmo-1b's train steps under ``fsdp`` and ``tp``,
+  nemo's prefill and decode under ``tp`` with its cache's positions
+  sharded, deepseek-moe-16b's steps, prefill and decode under ``ep``,
+  each against the same model run without a mesh on rank 0 within the
+  CPU tests' limits, each rank's parameter and moment bytes equal to
+  the sum of its blocks (``shardings_for``), its peak bytes, and the
+  collectives a step (calls and bytes; host-staged gloo, not NCCL).  It
+  launches no kernel of the port.  The graphs are made after it.
 
 Every phase prints one JSON line with its seconds; any failed check
 raises and the script exits non-zero.  The lines before the last are the
@@ -175,7 +190,7 @@ import traceback
 import warnings
 import zlib
 from collections import Counter
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -215,6 +230,7 @@ from repro_torch.kernels.fused_rmsnorm import (  # noqa: E402
 from repro_torch.kernels.fused_rmsnorm import \
     kernel as rms_kernel  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.train import build_batch_fn, train_loop  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import common as lm_common  # noqa: E402
@@ -225,6 +241,7 @@ from repro_torch.optim import OptConfig  # noqa: E402
 from repro_torch.roofline import count_params, model_flops  # noqa: E402
 from repro_torch.train import (init_train_state,  # noqa: E402
                                make_train_step)
+from repro_torch.runtime import mesh as rt_mesh  # noqa: E402
 from repro_torch.runtime import (FaultInjector, Mesh,  # noqa: E402
                                  ShardLossFault, SimulatedFault,
                                  run_with_recovery)
@@ -428,6 +445,41 @@ TRAIN_CPU_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4,
                  "param_atol": 2e-3, "param_rtol": 1e-2}
 # the time the training phase is meant to take at most (reported)
 TRAIN_BUDGET_S = 120.0
+# the LM on a mesh (lm_mesh, right after train_path): a 1-rank mesh of
+# LM_MESH_BACKEND in this process (olmo-1b's train step as train_path
+# runs it; nemo's serving config prefilling LM_MESH_NEMO_PROMPT tokens
+# and decoding LM_MESH_NEMO_NEW), then LM_MESH_RANKS gloo ranks sharing
+# the card on make_host_mesh(LM_MESH_TP), full width, LM_MESH_LAYERS
+# layers, float32 (LM_MESH_CASES: arch, profile, what runs, train
+# steps).  The collectives are host-staged gloo (~0.3 GB/s on an H100
+# 80GB HBM3 at 700 W): olmo's fsdp step moves 3.5 GB, deepseek's ep step
+# 2.9 GB, an ep forward 0.5 GB (PERF.md §6), so the steps and decodes are
+# few
+LM_MESH_BACKEND = "nccl"
+LM_MESH_NEMO_PROMPT, LM_MESH_NEMO_NEW = 4096, 16
+LM_MESH_RANKS, LM_MESH_TP, LM_MESH_LAYERS = 4, 2, 2
+LM_MESH_TRAIN_BATCH, LM_MESH_TRAIN_SEQ = 4, 256
+LM_MESH_SERVE_BATCH, LM_MESH_PROMPT, LM_MESH_NEW = 2, 512, 2
+LM_MESH_CASES = (("olmo-1b", "fsdp", ("train",), 2),
+                 ("olmo-1b", "tp", ("train",), 2),
+                 ("mistral-nemo-12b", "tp", ("serve",), 0),
+                 ("deepseek-moe-16b", "ep", ("train", "serve"), 1))
+# logits of a mesh against no mesh in float32: the CPU tests' limit
+# (tests/test_torch_lm_mesh.py)
+LM_MESH_LOGITS_TOL = 1e-4
+# the gloo ranks' train steps run the CPU tests' optimizer (AdamW's eps at
+# 1e-4, so that its first update g / (|g| + eps) is well conditioned, and
+# the whole lr from the first step) and are held to their limits; on top,
+# each leaf's change over the steps against the mesh-less change:
+# max |d_mesh - d_plain| <= LM_MESH_STEP_RTOL * max |d_plain|, which an
+# update skipped or scaled wrongly (a clip scale that differs between the
+# ranks) misses by a ratio near 1
+LM_MESH_OPT = OptConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=10,
+                        eps=1e-4)
+LM_MESH_TOL = {"loss_rtol": 1e-4, "grad_norm_rtol": 1e-4,
+               "param_atol": 1e-4, "param_rtol": 1e-4}
+LM_MESH_STEP_RTOL = 1e-2
+LM_MESH_BUDGET_S = 120.0
 # kernel against plain version in float32, (atol, rtol, rms_rel) by working
 # type: every element within |a - b| <= atol + rtol * |b|, and the whole
 # output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
@@ -3888,8 +3940,9 @@ def lm_cross_checks(params, config, tokens) -> tuple:
         cos, sin = lm_common.rope_angles(pos, config.hd, config.rope_theta)
         q, k = lm_common.apply_rope(q, cos, sin), lm_common.apply_rope(
             k, cos, sin)
-        ctx = lm_tfm.BlockCtx(config, "train", pos, 0)
-        x1, _, _ = lm_tfm._apply_attn_mlp(layer0, x, ctx, None)
+        ctx = lm_tfm.placed(lm_tfm.BlockCtx(config, "train", pos, 0))
+        x1, _, _ = lm_tfm._apply_attn_mlp(layer0, x, ctx, None,
+                                          lm_tfm._attn_mlp_specs(config))
         path_f32 = lm_attn.attend_chunked(
             q.float(), k.float(), v.float(), causal=True, **chunks).to(bf16)
         path_bf16 = lm_attn.attend_chunked(q, k, v, causal=True, **chunks)
@@ -4026,11 +4079,11 @@ def moe_drops(model, params, batch: dict, max_len: int) -> dict:
     layers = []
     inner = lm_mlp.moe_apply
 
-    def counting(p, x, config):
+    def counting(p, x, config, *placed):
         xf = x.reshape(-1, config.d_model)
         keep = lm_mlp.route(p, xf, config)[4]
         layers.append((int((~keep).sum()), keep.numel(), keep.shape[0]))
-        return inner(p, x, config)
+        return inner(p, x, config, *placed)
 
     lm_mlp.moe_apply = counting
     try:
@@ -4540,6 +4593,401 @@ def phase_train(card: str) -> list:
     return [run]
 
 
+def timed_ms(fn) -> tuple:
+    """(CUDA-event ms of one call of ``fn``, its output)."""
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end), out
+
+
+def state_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in
+               lm_common.tree_leaves_with_path(tree, torch.is_tensor))
+
+
+def block_bytes(model, dtype) -> int:
+    """The bytes of the rank's blocks of ``model``'s parameters in
+    ``dtype``, from ``shardings_for``."""
+    specs = dict(lm_common.tree_leaves_with_path(model.param_specs(),
+                                                 lm_common.is_spec))
+    item = torch.empty((), dtype=dtype).element_size()
+    return sum(int(np.prod(sh.shard_shape(specs[p].shape))) * item
+               for p, sh in lm_common.tree_leaves_with_path(
+                   model.shardings,
+                   lambda x: isinstance(x, lm_common.Sharding)))
+
+
+def lm_mesh_train_one(card: str, mesh, plain_ms: float) -> dict:
+    """olmo-1b at full width and depth, one step on the 1-rank ``mesh``
+    from the state of the mesh-less step (the same tensors: on one rank a
+    block is the whole leaf), within ``TRAIN_CPU_TOL`` of it."""
+    config = get_arch(TRAIN_ARCH).config
+    model = build_model(config, device=DEVICE)
+    state = init_train_state(
+        model, torch.Generator(device=DEVICE).manual_seed(TRAIN_SEED),
+        TRAIN_OPT)
+    batch = build_batch_fn(config, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED,
+                           device=DEVICE)(0)
+    plain = make_train_step(model, TRAIN_OPT)
+    ms, (want, m_want) = timed_ms(lambda: plain(state, batch))
+    mesh_model = build_model(config, mesh)
+    expected = block_bytes(mesh_model, config.param_dtype)
+    if expected != state_bytes(state.params):
+        raise AssertionError(f"lm_mesh: {state_bytes(state.params)} "
+                             f"parameter bytes, blocks of {expected}")
+    step = make_train_step(mesh_model, TRAIN_OPT)
+    reset_launch_counts()
+    rt_mesh.reset_collective_stats()
+    mesh_ms, (got, m_got) = timed_ms(lambda: step(state, batch))
+    launches = launch_counts()
+    out = {"phase": "lm_mesh_train", "nvidia_smi": card,
+           "process_group": LM_MESH_BACKEND, "mesh": [1, 1],
+           "arch": TRAIN_ARCH, "n_layers": config.n_layers,
+           "d_model": config.d_model, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "step_ms": mesh_ms, "plain_step_ms": ms,
+           "train_path_step_ms_mean": plain_ms,
+           "loss_rel": rel(m_got["loss"], m_want["loss"]),
+           "grad_norm_rel": rel(m_got["grad_norm"], m_want["grad_norm"]),
+           **train_close(got, want, TRAIN_CPU_TOL),
+           "bit_for_bit": all(torch.equal(x, y) for (_, x), (_, y) in zip(
+               train_leaves(got), train_leaves(want))),
+           "parameter_bytes": expected,
+           "collectives": rt_mesh.collective_stats(), "launches": launches}
+    emit(out)
+    if out["loss_rel"] > TRAIN_CPU_TOL["loss_rtol"] or \
+            out["grad_norm_rel"] > TRAIN_CPU_TOL["grad_norm_rtol"] or \
+            out["excess"] > 0:
+        raise AssertionError(f"lm_mesh: the 1-rank step against the "
+                             f"mesh-less one: {out}")
+    del model, mesh_model, state, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def greedy(model, params, tokens, new: int, max_len: int) -> tuple:
+    """(the greedy continuation of ``tokens`` (B, T), the prefill's
+    CUDA-event ms) with ``model``; its logits gathered whole."""
+    vp = model.config.padded_vocab
+    b = tokens.shape[0]
+    with torch.inference_mode():
+        ms, (logits, cache) = timed_ms(lambda: model.prefill(
+            params, {"tokens": tokens}, max_len=max_len))
+        out, logits_all = [], []
+        for _ in range(new):
+            logits = model.whole(logits, (b, 1, vp), "batch", None, "vocab")
+            logits_all.append(logits.float())
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+            logits, cache = model.decode_step(params, tok, cache)
+    return torch.cat(out, 1), ms, torch.cat(logits_all, 1)
+
+
+def lm_mesh_serve_one(card: str, mesh) -> dict:
+    """mistral-nemo-12b's serving config at full width and depth on the
+    1-rank ``mesh`` and without one, the same bf16 weights: the greedy
+    tokens after a prefill of ``LM_MESH_NEMO_PROMPT`` tokens must be
+    equal."""
+    config = get_arch(LM_ARCH).config.for_serving()
+    model = build_model(config, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+    mesh_model = build_model(config, mesh)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, config.vocab_size, (1, LM_MESH_NEMO_PROMPT)), device=DEVICE)
+    cap = LM_MESH_NEMO_PROMPT + LM_MESH_NEMO_NEW
+    want, plain_ms, _ = greedy(model, params, tokens, LM_MESH_NEMO_NEW, cap)
+    reset_launch_counts()
+    got, mesh_ms, _ = greedy(mesh_model, params, tokens, LM_MESH_NEMO_NEW,
+                             cap)
+    out = {"phase": "lm_mesh_serve", "nvidia_smi": card,
+           "process_group": LM_MESH_BACKEND, "mesh": [1, 1],
+           "arch": LM_ARCH, "profile": config.sharding_profile,
+           "n_layers": config.n_layers, "prompt": LM_MESH_NEMO_PROMPT,
+           "new_tokens": LM_MESH_NEMO_NEW, "prefill_ms": mesh_ms,
+           "plain_prefill_ms": plain_ms,
+           "tokens_equal": bool(torch.equal(got, want)),
+           "tokens": got[0].tolist(), "launches": launch_counts()}
+    emit(out)
+    if not out["tokens_equal"]:
+        raise AssertionError(f"lm_mesh: nemo's greedy tokens on a 1-rank "
+                             f"mesh {got.tolist()} != {want.tolist()}")
+    del model, mesh_model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_config(arch: str, profile: str):
+    config = get_arch(arch).config
+    return config.replace(n_layers=LM_MESH_LAYERS, dtype=torch.float32,
+                          param_dtype=torch.float32,
+                          sharding_profile=profile)
+
+
+# rank 0's mesh-less runs by (arch, steps): the same for every profile
+_PLAIN_TRAIN: dict = {}
+
+
+def plain_train(config, steps: int, device) -> tuple:
+    """(each step's loss and grad norm, the parameters before the first
+    step, the state after the last) of ``config`` without a mesh, from
+    the draws the mesh's run makes."""
+    key = (config.name, steps)
+    if key not in _PLAIN_TRAIN:
+        _PLAIN_TRAIN.clear()
+        model = build_model(config, device=device)
+        state = init_train_state(
+            model, torch.Generator(device=device).manual_seed(TRAIN_SEED),
+            LM_MESH_OPT)
+        before = {p: t.clone() for p, t in lm_common.tree_leaves_with_path(
+            state.params, torch.is_tensor)}
+        step = make_train_step(model, LM_MESH_OPT)
+        batch_at = build_batch_fn(config, LM_MESH_TRAIN_BATCH,
+                                  LM_MESH_TRAIN_SEQ, TRAIN_SEED,
+                                  device=device)
+        metrics = []
+        for k in range(steps):
+            state, m = step(state, batch_at(k))
+            metrics.append((m["loss"], m["grad_norm"]))
+        _PLAIN_TRAIN[key] = (metrics, before, state)
+    return _PLAIN_TRAIN[key]
+
+
+def step_close(got: dict, want: dict, before: dict) -> dict:
+    """Each leaf's change ``got - before`` against ``want - before``
+    (path -> tensor): the worst ``max |d_got - d_want| / max |d_want|``
+    over the leaves (inf where only one of them changed), and whether it
+    is within ``LM_MESH_STEP_RTOL``."""
+    worst = 0.0
+    for path, w in want.items():
+        d_want = (w - before[path]).float()
+        d_got = (got[path] - before[path]).float()
+        scale, miss = float(d_want.abs().max()), float(
+            (d_got - d_want).abs().max())
+        worst = max(worst, miss / scale if scale else
+                    (0.0 if miss == 0 else float("inf")))
+    return {"step_rel": worst, "step_ok": worst <= LM_MESH_STEP_RTOL}
+
+
+def lm_mesh_train(mesh, config, rank: int, steps: int) -> dict:
+    """``steps`` train steps on ``mesh`` and, on rank 0, without one
+    (:func:`plain_train`), from the same draws, with ``LM_MESH_OPT``:
+    each step's loss and grad norm, and the parameters after the last,
+    within ``LM_MESH_TOL``; each leaf's change within
+    ``LM_MESH_STEP_RTOL`` (:func:`step_close`)."""
+    device = mesh.device
+    model = build_model(config, mesh)
+    state = init_train_state(
+        model, torch.Generator(device=device).manual_seed(TRAIN_SEED),
+        LM_MESH_OPT)
+    held = {k: state_bytes(t) for k, t in (("params", state.params),
+                                           ("m", state.opt["m"]),
+                                           ("v", state.opt["v"]))}
+    expected = block_bytes(model, config.param_dtype)
+    batch_at = build_batch_fn(config, LM_MESH_TRAIN_BATCH,
+                              LM_MESH_TRAIN_SEQ, TRAIN_SEED, device=device)
+    step = make_train_step(model, LM_MESH_OPT)
+    losses, norms, walls, stats = [], [], [], []
+    for k in range(steps):
+        rt_mesh.reset_collective_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch_at(k))
+        walls.append(time.perf_counter() - t0)
+        stats.append(rt_mesh.collective_stats())
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    whole = {p: lm_common.relayout(t, mesh, sh.layout(t.dim()),
+                                   ((),) * t.dim())
+             for (p, t), (_, sh) in zip(
+                 lm_common.tree_leaves_with_path(state.params,
+                                                 torch.is_tensor),
+                 lm_common.tree_leaves_with_path(
+                     model.shardings,
+                     lambda x: isinstance(x, lm_common.Sharding)))}
+    out = {"kind": "train", "parameter_bytes": held["params"],
+           "moment_bytes": held["m"] + held["v"],
+           "expected_block_bytes": expected, "losses": losses,
+           "grad_norms": norms, "step_wall_s": walls,
+           "collectives_a_step": stats}
+    if held["params"] != expected or held["m"] != expected \
+            or held["v"] != expected:
+        raise AssertionError(f"lm_mesh rank {rank}: held {held}, blocks "
+                             f"of {expected} bytes")
+    del state
+    if rank == 0:
+        metrics, before, pstate = plain_train(config, steps, device)
+        out["loss_rel"] = [rel(a, m[0]) for a, m in zip(losses, metrics)]
+        out["grad_norm_rel"] = [rel(a, m[1]) for a, m in zip(norms,
+                                                             metrics)]
+        mesh_state = type(pstate)(params=lm_common.tree_map_with_path(
+            lambda p, _: whole[p], pstate.params, torch.is_tensor),
+            opt=pstate.opt)
+        out.update(train_close(mesh_state, pstate, LM_MESH_TOL))
+        out.update(step_close(whole, dict(lm_common.tree_leaves_with_path(
+            pstate.params, torch.is_tensor)), before))
+        if max(out["loss_rel"]) > LM_MESH_TOL["loss_rtol"] or \
+                max(out["grad_norm_rel"]) > LM_MESH_TOL["grad_norm_rtol"] \
+                or out["excess"] > 0 or not out["step_ok"]:
+            raise AssertionError(f"lm_mesh train against no mesh: {out}")
+    return out
+
+
+def lm_mesh_serve(mesh, config, rank: int) -> dict:
+    """A prefill of ``LM_MESH_PROMPT`` tokens and ``LM_MESH_NEW`` greedy
+    decode steps on ``mesh`` and, on rank 0, without one, from the same
+    draws: the logits within ``LM_MESH_LOGITS_TOL``, the tokens equal."""
+    device = mesh.device
+    model = build_model(config, mesh)
+    params = model.init(torch.Generator(device=device).manual_seed(LM_SEED))
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, config.vocab_size, (LM_MESH_SERVE_BATCH, LM_MESH_PROMPT)),
+        device=device)
+    cap = LM_MESH_PROMPT + LM_MESH_NEW
+    rt_mesh.reset_collective_stats()
+    t0 = time.perf_counter()
+    got, _, got_logits = greedy(model, params, tokens, LM_MESH_NEW, cap)
+    out = {"kind": "serve", "wall_s": time.perf_counter() - t0,
+           "collectives": rt_mesh.collective_stats(),
+           "parameter_bytes": state_bytes(params),
+           "expected_block_bytes": block_bytes(model, config.param_dtype),
+           "tokens": got.tolist()}
+    if out["parameter_bytes"] != out["expected_block_bytes"]:
+        raise AssertionError(f"lm_mesh rank {rank}: {out}")
+    del params
+    if rank == 0:
+        plain = build_model(config, device=device)
+        pparams = plain.init(torch.Generator(device=device).manual_seed(
+            LM_SEED))
+        want, _, want_logits = greedy(plain, pparams, tokens, LM_MESH_NEW,
+                                      cap)
+        diff = (got_logits - want_logits).abs()
+        out.update(max_abs_diff=float(diff.max()),
+                   excess=float((diff - LM_MESH_LOGITS_TOL * (
+                       1 + want_logits.abs())).max()),
+                   tokens_equal=bool(torch.equal(got, want)))
+        if out["excess"] > 0 or not out["tokens_equal"]:
+            raise AssertionError(f"lm_mesh serve against no mesh: {out}")
+    return out
+
+
+def lm_mesh_rank(rank: int, world: int, store: str, job: dict) -> None:
+    """One of ``LM_MESH_RANKS`` gloo ranks sharing the card (a spawned
+    process): every case of ``LM_MESH_CASES`` on ``make_host_mesh(
+    LM_MESH_TP)``; writes ``lm_rank<r>.json`` into ``job["dir"]``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    try:
+        mesh = make_host_mesh(LM_MESH_TP, device=job["device"])
+        out = {"rank": rank, "device": str(mesh.device), "cases": []}
+        reset_launch_counts()
+        for arch, profile, kinds, steps in LM_MESH_CASES:
+            config = lm_mesh_config(arch, profile)
+            for kind in kinds:
+                if mesh.device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(mesh.device)
+                t0 = time.perf_counter()
+                run = (lm_mesh_train(mesh, config, rank, steps)
+                       if kind == "train" else
+                       lm_mesh_serve(mesh, config, rank))
+                run.update(arch=arch, profile=profile,
+                           seconds=time.perf_counter() - t0,
+                           peak_bytes=torch.cuda.max_memory_allocated(
+                               mesh.device)
+                           if mesh.device.type == "cuda" else None)
+                out["cases"].append(run)
+                if mesh.device.type == "cuda":
+                    torch.cuda.empty_cache()
+        out["launches"] = launch_counts()
+        with open(f"{job['dir']}/lm_rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_lm_mesh(card: str, plain_ms: float) -> list:
+    """The LM on a mesh: the 1-rank mesh in this process, then the
+    spawned gloo ranks, each case's rows printed with every rank's
+    bytes and collectives (the ranks' results must agree).  Returns the
+    runs whose launches (all 0) the kernels line sums."""
+    t_phase = time.perf_counter()
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="lm_mesh_") as directory:
+        dist.init_process_group(LM_MESH_BACKEND,
+                                init_method=f"file://{directory}/one",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(1, device=DEVICE)
+            rows.append(lm_mesh_train_one(card, mesh, plain_ms))
+            rows.append(lm_mesh_serve_one(card, mesh))
+        finally:
+            dist.destroy_process_group()
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            lm_mesh_rank, args=(LM_MESH_RANKS, f"{directory}/gloo",
+                                {"dir": directory, "device": DEVICE}),
+            nprocs=LM_MESH_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_SPAWN_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the {LM_MESH_RANKS} LM mesh ranks "
+                                       f"still run after "
+                                       f"{MESH_SPAWN_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        spawn_s = time.perf_counter() - t0
+        outs = []
+        for rank in range(LM_MESH_RANKS):
+            with open(f"{directory}/lm_rank{rank}.json") as f:
+                outs.append(json.load(f))
+    for i, case in enumerate(outs[0]["cases"]):
+        each = [out["cases"][i] for out in outs]
+        agreed = "losses" if case["kind"] == "train" else "tokens"
+        if len({json.dumps(c[agreed]) for c in each}) != 1:
+            raise AssertionError(f"lm_mesh {case['arch']} {case['profile']}"
+                                 f" {case['kind']}: the ranks' {agreed} "
+                                 f"differ")
+        row = {"phase": "lm_mesh_ranks", "nvidia_smi": card,
+               "process_group": "gloo", "host_staged": True,
+               "ranks": LM_MESH_RANKS, "mesh": [LM_MESH_RANKS // LM_MESH_TP,
+                                                LM_MESH_TP],
+               "devices": sorted({out["device"] for out in outs}),
+               "layers": LM_MESH_LAYERS, "dtype": "float32",
+               **{k: v for k, v in case.items()
+                  if k not in ("parameter_bytes", "moment_bytes",
+                               "expected_block_bytes", "peak_bytes",
+                               "collectives_a_step", "collectives",
+                               "seconds", "step_wall_s", "wall_s")},
+               "per_rank": [{k: c.get(k) for k in (
+                   "parameter_bytes", "moment_bytes", "expected_block_bytes",
+                   "peak_bytes", "seconds", "step_wall_s", "wall_s",
+                   "collectives_a_step", "collectives")} for c in each]}
+        rows.append(row)
+        emit(row)
+    launches = summed_launches([{"launches": {
+        name: out["launches"].get(name, 0) for name in KERNEL_NAMES}}
+        for out in outs] + rows[:2])
+    if any(launches.values()):
+        raise AssertionError(f"the LM mesh phase launched kernels: "
+                             f"{launches}")
+    seconds = time.perf_counter() - t_phase
+    run = {"phase": "lm_mesh_done", "nvidia_smi": card, "seconds": seconds,
+           "spawn_s": spawn_s, "budget_s": LM_MESH_BUDGET_S,
+           "within_budget": seconds <= LM_MESH_BUDGET_S,
+           "launches": launches}
+    emit(run)
+    return [run]
+
+
 def build_all() -> dict:
     """Build every kernel library, one ``nvcc`` each, all at once."""
     loaders = [module.load_library for _, module in LIBRARIES]
@@ -4551,6 +4999,50 @@ def build_all() -> dict:
                              _build.BUILD_LOGS.get(name, "").splitlines()
                              if "registers" in ln or "spill" in ln]}
             for name, module in LIBRARIES}
+
+
+def host_graphs(specs: dict) -> dict:
+    """The connectivity phases' large graphs, made with ``gen``'s numpy
+    generators on the host (in a worker process, :class:`HostGraphs`):
+    name -> (src, dst, n_vertices, seconds), the int32 edges of
+    ``gen.rmat``/``gen.delaunay_like`` on the CPU."""
+    out = {}
+    for name, (kind, scale) in specs.items():
+        t = time.perf_counter()
+        g = (gen.rmat(scale, edge_factor=RMAT_EDGE_FACTOR, device="cpu")
+             if kind == "rmat" else gen.delaunay_like(scale, device="cpu"))
+        out[name] = (g.src.numpy(), g.dst.numpy(), g.n_vertices,
+                     time.perf_counter() - t)
+    return out
+
+
+class HostGraphs:
+    """:func:`host_graphs` of ``specs`` in one spawned worker process (it
+    does not touch the card), started by :meth:`start` where the card
+    runs phases that leave the host idle (training, the mesh), so that
+    the host-bound serving phases before it are measured alone."""
+
+    def __init__(self, specs: dict):
+        self.specs, self.pool, self.future = specs, None, None
+
+    def start(self) -> None:
+        self.pool = ProcessPoolExecutor(1, mp_context=mp.get_context(
+            "spawn"))
+        self.future = self.pool.submit(host_graphs, self.specs)
+
+    def result(self) -> dict:
+        if self.future is None:
+            self.start()
+        return self.future.result()
+
+    def stop(self) -> None:
+        """End the worker, finished or not."""
+        if self.pool is None:
+            return
+        for process in list(getattr(self.pool, "_processes", {}).values()):
+            if process.is_alive():
+                process.kill()
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def main(argv=None) -> int:
@@ -4570,7 +5062,26 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
+    # the large graphs are made on the host while the card trains
+    # (rmat(22,16) alone takes 190-370 s of numpy work)
+    rmat_name = f"rmat({args.rmat_scale},{RMAT_EDGE_FACTOR})"
+    delaunay_name = f"delaunay_like({args.delaunay_scale})"
+    async_rmat_name = f"rmat({args.async_rmat_scale},{RMAT_EDGE_FACTOR})"
+    graphs = HostGraphs({rmat_name: ("rmat", args.rmat_scale),
+                         delaunay_name: ("delaunay", args.delaunay_scale),
+                         async_rmat_name: ("rmat", args.async_rmat_scale)})
+    try:
+        return run_phases(args, t_all, graphs, rmat_name, delaunay_name,
+                          async_rmat_name)
+    finally:
+        graphs.stop()
 
+
+def run_phases(args, t_all: float, graphs: HostGraphs, rmat_name: str,
+               delaunay_name: str, async_rmat_name: str) -> int:
+    """Every phase of :func:`main` in order; ``graphs`` are started when
+    the training phase starts and taken when the connectivity phases
+    start."""
     # 1. device
     t0 = time.perf_counter()
     card = device_line()
@@ -4610,8 +5121,14 @@ def main(argv=None) -> int:
     # one model at a time, each freed before the next
     float_runs += phase_lm_families(card)
     # 2e. the training path at olmo-1b's full width and depth, then its
-    # checks at 2 layers and the smoke configs card against CPU
-    float_runs += phase_train(card)
+    # checks at 2 layers and the smoke configs card against CPU; the
+    # graphs are made on the host from here on
+    graphs.start()
+    train_runs = phase_train(card)
+    float_runs += train_runs
+    # 2f. the LM on a mesh: a 1-rank NCCL mesh, then gloo ranks sharing
+    # the card
+    float_runs += phase_lm_mesh(card, train_runs[0]["step_ms_mean"])
 
     # graphs: the sizes of the paper's soc-LiveJournal1 and delaunay_n24
     # for the main and frontier paths, smaller ones for the async path
@@ -4626,23 +5143,23 @@ def main(argv=None) -> int:
         seconds[name] = time.perf_counter() - t
         return g
 
-    rmat_name = f"rmat({args.rmat_scale},{RMAT_EDGE_FACTOR})"
-    delaunay_name = f"delaunay_like({args.delaunay_scale})"
-    rmat = make(rmat_name, lambda: gen.rmat(
-        args.rmat_scale, edge_factor=RMAT_EDGE_FACTOR, device=DEVICE))
-    delaunay = make(delaunay_name, lambda: gen.delaunay_like(
-        args.delaunay_scale, device=DEVICE))
+    made = graphs.result()
+    waited_s = time.perf_counter() - t0
+    on_card = {name: Graph.from_numpy(src, dst, n, device=DEVICE)
+               for name, (src, dst, n, _) in made.items()}
+    host_seconds = {name: m[3] for name, m in made.items()}
+    del made
+    rmat, delaunay = on_card[rmat_name], on_card[delaunay_name]
     star = make("star", lambda: gen.star(1 << args.star_scale,
                                          device=DEVICE))
     async_graphs = {
         f"delaunay_like({args.async_delaunay_scale})": make(
             "async_delaunay", lambda: gen.delaunay_like(
                 args.async_delaunay_scale, device=DEVICE)),
-        f"rmat({args.async_rmat_scale},{RMAT_EDGE_FACTOR})": make(
-            "async_rmat", lambda: gen.rmat(
-                args.async_rmat_scale, edge_factor=RMAT_EDGE_FACTOR,
-                device=DEVICE)),
+        async_rmat_name: on_card[async_rmat_name],
     }
+    # no reference of its own to the graphs: the phases free them
+    del on_card
     check_graphs = {
         f"delaunay_like({args.check_scale})": gen.delaunay_like(
             args.check_scale, device=DEVICE),
@@ -4659,7 +5176,8 @@ def main(argv=None) -> int:
             1 << 16, device=DEVICE),
     }
     emit({"phase": "graphs", "seconds": time.perf_counter() - t0,
-          "seconds_each": seconds,
+          "waited_for_the_host_s": waited_s,
+          "host_seconds_each": host_seconds, "seconds_each": seconds,
           **{name: [g.n_vertices, g.n_edges] for name, g in
              [(rmat_name, rmat), (delaunay_name, delaunay),
               *async_graphs.items(), *check_graphs.items()]}})

@@ -16,8 +16,20 @@ NamedTuple's fields in order (``TrainState``'s ``params``, ``opt``), a
 list's or other tuple's indices, joined with ``"__"`` along the path.
 Every leaf is saved as a host array of its own dtype (a CUDA tensor is
 copied to the host when the save is called).  ``restore`` loads numpy
-arrays, or tensors on the ``device`` it is given; the reference's
-``shardings`` have no meaning on one card.
+arrays, or tensors on the ``device`` it is given.
+
+On a mesh the state holds each rank's blocks and ``shardings`` (a tree
+of ``repro_torch.models.common.Sharding`` with the state's structure,
+None for a leaf every rank holds whole, as
+``repro_torch.train.step.train_state_shardings`` makes) says how.  A
+save gathers the sharded leaves whole one at a time (every rank takes
+part), the mesh's first rank copies each to the host and writes it at
+once, the others drop it, so no rank holds more than one gathered leaf;
+every rank passes a barrier before the save returns (a save on a mesh
+is synchronous).  A restore passes a barrier, then every rank reads its
+block of each sharded leaf through a memory map of the full array.  So a checkpoint written on a mesh
+restores without one, in this package and the reference, and the other
+way round.
 """
 from __future__ import annotations
 
@@ -88,8 +100,52 @@ def _host_state(state) -> List[Tuple[str, np.ndarray]]:
     return [(name, _to_host(leaf)) for name, leaf in _flatten(state)]
 
 
-def _write(directory: str, step: int,
-           leaves: List[Tuple[str, np.ndarray]]) -> str:
+def _sharded(shardings) -> Dict[str, Any]:
+    """name -> Sharding of the sharded leaves of ``shardings``."""
+    if shardings is None:
+        return {}
+    return {name: sh for name, sh in _flatten(shardings)
+            if sh is not None and getattr(sh, "mesh", None) is not None}
+
+
+def _mesh_of(sharded: Dict[str, Any]):
+    return next(iter(sharded.values())).mesh if sharded else None
+
+
+def _barrier(mesh) -> None:
+    import torch.distributed as dist
+    dist.barrier(group=mesh.group(mesh.axis_names))
+
+
+def _is_writer(mesh) -> bool:
+    return mesh is None or mesh.rank == int(mesh.devices.flat[0])
+
+
+def _gather_leaf(leaf, sharding):
+    """The whole array of the rank's block ``leaf`` (a collective)."""
+    from repro_torch.models import common as cm
+    layout = sharding.layout(leaf.dim())
+    return cm.relayout(leaf.detach(), sharding.mesh, layout,
+                       ((),) * leaf.dim())
+
+
+def _gathered(state, sharded, keep: bool):
+    """``(name, host array)`` of each leaf of the state, one at a time: a
+    sharded leaf is gathered whole from the ranks (every rank takes
+    part), copied to the host where the rank ``keep``s it and dropped at
+    once, so a rank holds one gathered leaf at a time; a rank that does
+    not keep them yields None in place of the arrays."""
+    for name, leaf in _flatten(state):
+        if name in sharded:
+            leaf = _gather_leaf(leaf, sharded[name])
+        arr = _to_host(leaf) if keep else None
+        del leaf
+        yield name, arr
+
+
+def _write(directory: str, step: int, leaves) -> str:
+    """Write ``leaves`` (``(name, host array)`` pairs, any iterable: each
+    array is saved as it comes) as the checkpoint of ``step``."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -100,6 +156,7 @@ def _write(directory: str, step: int,
         np.save(os.path.join(tmp, name + ".npy"), arr)
         manifest["leaves"].append(
             {"name": name, "shape": list(arr.shape), "dtype": str(arr.dtype)})
+        del arr
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -124,21 +181,40 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _load_block(path: str, sharding) -> np.ndarray:
+    """The calling rank's block of the array saved at ``path``, read
+    through a memory map: only the block is read into memory."""
+    whole = np.load(path, mmap_mode="r")
+    index = []
+    for size, axes in zip(whole.shape, sharding.layout(whole.ndim)):
+        n = sharding.mesh.n_shards(axes) if axes else 1
+        k = sharding.mesh.shard_index(axes) if axes else 0
+        index.append(slice(k * (size // n), (k + 1) * (size // n)))
+    return np.array(whole[tuple(index)])
+
+
 def restore_checkpoint(
     directory: str, like: Any, step: Optional[int] = None,
-    device: DeviceLike = None,
+    device: DeviceLike = None, shardings=None,
 ) -> tuple[Any, int]:
     """Restore into the structure of ``like`` (only its keys are used).
 
     Leaves come back as numpy arrays, or as tensors on ``device`` when
-    one is named.  ``step=None`` takes the latest.
+    one is named.  ``step=None`` takes the latest.  With ``shardings``
+    (on a mesh) every rank passes a barrier first and keeps its block of
+    each sharded leaf.
     """
+    sharded = _sharded(shardings)
+    if sharded:
+        _barrier(_mesh_of(sharded))
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {directory}")
     path = os.path.join(directory, f"step_{step:08d}")
-    leaves = {name: np.load(os.path.join(path, name + ".npy"))
+    leaves = {name: (_load_block(os.path.join(path, name + ".npy"),
+                                 sharded[name]) if name in sharded else
+                     np.load(os.path.join(path, name + ".npy")))
               for name, _ in _flatten(like)}
     if device is not None:
         dev = torch.device(device)
@@ -171,7 +247,24 @@ class CheckpointManager:
         for d in steps[: -self.keep]:
             shutil.rmtree(os.path.join(self.directory, d))
 
-    def save(self, step: int, state: Any):
+    def save(self, step: int, state: Any, shardings=None):
+        """Save ``state`` at ``step``; with ``shardings`` (on a mesh)
+        every rank must call it, and it returns when the mesh's first
+        rank has written the checkpoint."""
+        sharded = _sharded(shardings)
+        if sharded:
+            mesh = _mesh_of(sharded)
+            writer = _is_writer(mesh)
+            leaves = _gathered(state, sharded, keep=writer)
+            if writer:
+                self.wait()
+                _write(self.directory, step, leaves)
+                self._gc()
+            else:
+                for _ in leaves:          # the gathers, dropped at once
+                    pass
+            _barrier(mesh)
+            return
         # copy to the host *now* (the caller may change its tensors in
         # place after this returns), write in the background
         leaves = _host_state(state)
@@ -188,9 +281,10 @@ class CheckpointManager:
             work()
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device: DeviceLike = None):
+                device: DeviceLike = None, shardings=None):
         self.wait()
-        return restore_checkpoint(self.directory, like, step, device)
+        return restore_checkpoint(self.directory, like, step, device,
+                                  shardings)
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.directory)

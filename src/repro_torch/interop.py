@@ -26,6 +26,7 @@ from repro_torch.connectivity.solve import make_result
 from repro_torch.connectivity.streaming import StreamingConnectivity
 from repro_torch.graphs.structs import DeviceLike, Graph, resolve_device
 from repro_torch.models import common as cm
+from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SLSTMState, SSMState
 from repro_torch.models.common import ModelConfig
@@ -119,8 +120,13 @@ def _float_tensor(a, dtype: torch.dtype, device: torch.device,
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
+def _device(device: DeviceLike, mesh):
+    return resolve_device(mesh.device if mesh is not None and device is None
+                          else device)
+
+
 def lm_params_from_numpy(tree, config: ModelConfig,
-                         device: DeviceLike = None):
+                         device: DeviceLike = None, mesh=None):
     """The port's parameter tree from the reference's, each leaf passed
     through ``np.asarray(p, np.float32)`` (exact for bfloat16), as
     tensors on ``device`` in ``config.param_dtype``.
@@ -129,43 +135,56 @@ def lm_params_from_numpy(tree, config: ModelConfig,
     ``build_model(config).param_specs()`` (the decoder LM's tree, or the
     encoder-decoder's for the ``audio`` family); a missing, extra or
     misshapen leaf raises ``ValueError``.  The tree goes to the model's
-    ``load_params`` or ``BatchedServer(config, params=...)``.
+    ``load_params`` or ``BatchedServer(config, params=...)``.  With a
+    ``mesh`` (a ``repro_torch.runtime.Mesh``; ``device`` defaults to its
+    own) each leaf is the calling rank's block as ``shardings_for``
+    resolves it: the tree ``build_model(config, mesh)`` holds.
     """
-    check_tree(tree, lm_param_specs(config))
-    dev = resolve_device(device)
-    return cm.tree_map_with_path(
+    specs = lm_param_specs(config)
+    check_tree(tree, specs)
+    dev = _device(device, mesh)
+    whole = cm.tree_map_with_path(
         lambda path, a: _float_tensor(a, config.param_dtype, dev, path),
         tree, lambda x: isinstance(x, np.ndarray))
+    if mesh is None:
+        return whole
+    return cm.tree_blocks(whole, cm.shardings_for(specs, config, mesh))
 
 
 def train_state_from_numpy(state, config: ModelConfig, opt_config: OptConfig,
-                           device: DeviceLike = None) -> TrainState:
+                           device: DeviceLike = None,
+                           mesh=None) -> TrainState:
     """The port's :class:`~repro_torch.train.step.TrainState` from the
     reference's, given as ``(params, opt)`` with every float leaf passed
     through ``np.asarray(x, np.float32)`` (exact for bfloat16 moments)
     and ``opt["step"]`` through ``np.asarray``: the parameters as
     :func:`lm_params_from_numpy` gives them, ``m`` and ``v`` in
     ``opt_config.moment_dtype`` (their trees checked as the parameters'
-    are), ``step`` an int32 scalar, all on ``device``."""
+    are), ``step`` an int32 scalar, all on ``device``; with a ``mesh``
+    every leaf the calling rank's block (``m`` and ``v`` laid out as
+    their parameter)."""
     params, opt = state
     if not isinstance(opt, dict) or set(opt) != {"m", "v", "step"}:
         raise ValueError("opt must be a dict of m, v and step")
-    dev = resolve_device(device)
+    dev = _device(device, mesh)
     specs = lm_param_specs(config)
 
     def moments(tree, name):
         check_tree(tree, specs)
-        return cm.tree_map_with_path(
+        whole = cm.tree_map_with_path(
             lambda path, a: _float_tensor(a, opt_config.moment_dtype, dev,
                                           f"{name}.{path}"),
             tree, lambda x: isinstance(x, np.ndarray))
+        if mesh is None:
+            return whole
+        return cm.tree_blocks(whole, cm.shardings_for(specs, config, mesh))
 
     step = _require_numpy("step", opt["step"], scalar=True)
     if step.shape != () or not np.issubdtype(step.dtype, np.integer):
         raise TypeError(f"step must be an integer scalar, got {step.dtype} "
                         f"{step.shape}")
     return TrainState(
-        params=lm_params_from_numpy(params, config, device=dev),
+        params=lm_params_from_numpy(params, config, device=dev, mesh=mesh),
         opt={"m": moments(opt["m"], "m"), "v": moments(opt["v"], "v"),
              "step": torch.tensor(int(step), dtype=torch.int32, device=dev)})
 
@@ -175,7 +194,7 @@ _FLOAT32_STATES = {"ssd", "h", "c", "n", "m"}
 
 
 def lm_cache_from_numpy(cache, config: ModelConfig,
-                        device: DeviceLike = None):
+                        device: DeviceLike = None, mesh=None):
     """The port's cache from a reference prefill's, its float leaves
     passed through ``np.asarray(c, np.float32)`` and its lengths through
     ``np.asarray``: ``{"prefix": [...], "unit": [...]}`` and, for a
@@ -185,8 +204,10 @@ def lm_cache_from_numpy(cache, config: ModelConfig,
     named tuples are read by their fields).  ``ssd`` and the sLSTM states
     become float32, every other tensor ``config.dtype``, on ``device``;
     each stacked ``length`` (one per layer, all equal) becomes the
-    port's one Python int."""
-    dev = resolve_device(device)
+    port's one Python int.  With a ``mesh`` each tensor is the calling
+    rank's block as ``transformer.cache_shardings`` resolves it (on the
+    decoder's plan for the ``audio`` family)."""
+    dev = _device(device, mesh)
 
     def carry(c, what: str):
         fields = getattr(c, "_fields", None)
@@ -211,4 +232,10 @@ def lm_cache_from_numpy(cache, config: ModelConfig,
         dtype = torch.float32 if name in _FLOAT32_STATES else config.dtype
         return _float_tensor(c, dtype, dev, what)
 
-    return {key: carry(value, key) for key, value in cache.items()}
+    whole = {key: carry(value, key) for key, value in cache.items()}
+    if mesh is None:
+        return whole
+    plan = (tfm.seq2seq_plans(config)[1] if config.family == "audio"
+            else tfm.layer_plan(config))
+    return cm.tree_blocks(whole, tfm.resolve_cache_shardings(
+        tfm.cache_shardings(config, mesh, plan), whole))

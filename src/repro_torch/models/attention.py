@@ -14,6 +14,17 @@ The port's counterpart of ``repro.models.attention``, in plain torch
     LM path's shapes.
   * decode — new positions against a cache (:func:`attention_block` with
     a :class:`KVCache`).
+
+On a mesh (``place`` given, ``repro_torch.models.common.Placement``) a
+rank computes its own query heads where ``heads`` is in place, and its
+own KV heads where ``kv_heads`` divide the axis; where they are
+replicated, each local query head reads its global KV head
+(``global_head // (n_heads // n_kv_heads)``, :func:`_kv_for_heads`).  The
+caller ends ``wo``'s product with the all-reduce.  A KV cache whose
+sequence dim is sharded (``shard_cache_seq``) is decoded by
+:func:`_decode_seq_sharded`: every head over the rank's positions, the
+partial softmaxes combined across the group (row max, sum of
+exponentials, weighted values).
 """
 from __future__ import annotations
 
@@ -150,11 +161,87 @@ def init_kv_cache(batch: int, max_len: int, config: ModelConfig, dtype,
     )
 
 
+class _Heads(NamedTuple):
+    """The heads a rank computes: query heads ``[h0, h0 + n)`` and KV
+    heads ``[kv0, kv0 + n_kv)`` of the model's ``rep`` queries a KV
+    head."""
+    h0: int
+    n: int
+    kv0: int
+    n_kv: int
+    rep: int
+
+
+def _heads(params, config: ModelConfig, place, tp) -> _Heads:
+    n, n_kv = params["wq"].shape[1], params["wk"].shape[1]
+    rank = place.index(tp) if place is not None else 0
+    return _Heads(h0=rank * n if n != config.n_heads else 0, n=n,
+                  kv0=rank * n_kv if n_kv != config.n_kv_heads else 0,
+                  n_kv=n_kv, rep=config.n_heads // config.n_kv_heads)
+
+
+def _kv_for_heads(k: torch.Tensor, heads: _Heads,
+                  repeat: bool = False) -> torch.Tensor:
+    """``k`` (B, T, heads.n_kv, hd) as the KV heads the rank's query heads
+    read: itself where they group evenly (every local KV head serves
+    ``rep`` consecutive local query heads), else one KV head a query
+    head (also with ``repeat``: ``repeat_kv_math``)."""
+    first = heads.h0 // heads.rep - heads.kv0
+    if not repeat and heads.h0 % heads.rep == 0 \
+            and heads.n % heads.rep == 0:
+        count = heads.n // heads.rep
+        return k if (first, count) == (0, k.shape[2]) \
+            else k[:, :, first:first + count]
+    idx = ((heads.h0 + torch.arange(heads.n, device=k.device)) // heads.rep
+           - heads.kv0)
+    return k.index_select(2, idx)
+
+
+def _decode_seq_sharded(q, k, v, cache: KVCache, start: int, pos, config,
+                        place, tp, seq_axes, heads: _Heads):
+    """Decode against a cache whose positions are sharded over
+    ``seq_axes``: the step's K/V go to the rank that holds their
+    position; every query head attends over the rank's positions, and
+    the partial softmaxes are combined over the group."""
+    from repro_torch.runtime import mesh as rt
+    mesh = place.mesh
+    if tp:
+        q = rt.all_gather(q, mesh, tp, 2)
+    if heads.n_kv != config.n_kv_heads:
+        k = rt.all_gather(k, mesh, tp, 2)
+        v = rt.all_gather(v, mesh, tp, 2)
+    s_loc = cache.k.shape[1]
+    s0 = place.index(seq_axes) * s_loc
+    for j in range(q.shape[1]):
+        p = start + j - s0
+        if 0 <= p < s_loc:
+            cache.k[:, p] = k[:, j].to(cache.k.dtype)
+            cache.v[:, p] = v[:, j].to(cache.v.dtype)
+    qg = _group_q(q, config.n_kv_heads)
+    logits = torch.einsum("bqkgh,btkh->bkgqt", qg,
+                          cache.k.to(q.dtype)).float() * config.hd ** -0.5
+    valid = (s0 + torch.arange(s_loc, device=q.device))[None, :] \
+        <= pos[:, None]
+    m = place.all_reduce(
+        torch.where(valid, logits, NEG_INF).amax(-1, keepdim=True),
+        seq_axes, "max")
+    p = torch.where(valid, torch.exp(logits - m), 0.0)
+    l = place.all_reduce(p.sum(-1, keepdim=True), seq_axes)
+    acc = place.all_reduce(
+        torch.einsum("bkgqt,btkh->bkgqh", p, cache.v.float()), seq_axes)
+    out = (acc / l).to(q.dtype)                        # (b, kv, g, q, hd)
+    b, t = q.shape[:2]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, t, config.n_heads, config.hd)
+    return out[:, :, heads.h0:heads.h0 + heads.n]
+
+
 def attention_block(
     params, x: torch.Tensor, config: ModelConfig, *,
     positions: Optional[torch.Tensor] = None, causal: bool = True,
     cache: Optional[KVCache] = None,
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    place=None, specs=None, act: tuple = (), tp: tuple = (),
+    seq_axes: tuple = (),
 ):
     """Full attention sub-block: project, rope, attend, out-project.
 
@@ -172,14 +259,24 @@ def attention_block(
         reference clamps the write to the last positions).
       * cross-attention (``cross_kv`` given): the encoder's K/V,
         precomputed; no rotation, no mask; returns (out, None).
+
+    On a mesh, ``place`` with the block's ParamSpecs ``specs``, its
+    activations' axes ``act`` and its tensor-parallel axes ``tp``: the
+    rank's heads (the output is ``wo``'s partial product), and
+    ``seq_axes``, the axes a decode cache's positions are sharded over.
     """
     b, t, _ = x.shape
     rot = int(config.hd * config.rotary_pct)
+    if place is not None:
+        params = place.weights(params, specs, act, tp,
+                               inplace=("heads", "kv_heads"))
+    heads = _heads(params, config, place, tp)
 
     if cross_kv is not None:
         q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
         k, v = cross_kv
-        out = attend_full(q, k, v, causal=False)
+        out = attend_full(q, _kv_for_heads(k, heads),
+                          _kv_for_heads(v, heads), causal=False)
         new_state = None
     elif cache is None:
         if positions is None:
@@ -191,12 +288,9 @@ def attention_block(
             k = cm.apply_rope(k, cos, sin)
         # repeat_kv_math: repeat K/V to full heads for the compute (the
         # reference's TP-sharding-friendly form); the cache keeps Hkv
-        if config.repeat_kv_math and config.n_kv_heads != config.n_heads:
-            reps = config.n_heads // config.n_kv_heads
-            kf = torch.repeat_interleave(k, reps, dim=2)
-            vf = torch.repeat_interleave(v, reps, dim=2)
-        else:
-            kf, vf = k, v
+        repeat = config.repeat_kv_math and config.n_kv_heads != config.n_heads
+        kf = _kv_for_heads(k, heads, repeat)
+        vf = _kv_for_heads(v, heads, repeat)
         if t >= config.flash_block_threshold and t % config.attn_chunk_q == 0 \
                 and t % config.attn_chunk_kv == 0:
             out = attend_chunked(
@@ -209,18 +303,25 @@ def attention_block(
     else:
         # decode: t new tokens (usually 1) against the cache, in place
         start = cache.length
-        if start + t > cache.k.shape[1]:
+        capacity = cache.k.shape[1] * (place.n(seq_axes) if seq_axes else 1)
+        if start + t > capacity:
             raise ValueError(f"decode past the cache: {start} + {t} > "
-                             f"{cache.k.shape[1]} positions")
+                             f"{capacity} positions")
         q, k, v = _project_qkv(params, x, config)
         pos = torch.arange(start, start + t, device=x.device)
         if rot > 0:
             cos, sin = cm.rope_angles(pos, rot, config.rope_theta)
             q = cm.apply_rope(q, cos, sin)
             k = cm.apply_rope(k, cos, sin)
+        if seq_axes:
+            out = _decode_seq_sharded(q, k, v, cache, start, pos, config,
+                                      place, tp, seq_axes, heads)
+            y = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
+            return y, KVCache(k=cache.k, v=cache.v, length=start + t)
         cache.k[:, start:start + t] = k.to(cache.k.dtype)
         cache.v[:, start:start + t] = v.to(cache.v.dtype)
-        k_all, v_all = cache.k, cache.v
+        k_all = _kv_for_heads(cache.k, heads)
+        v_all = _kv_for_heads(cache.v, heads)
         n_kv = k_all.shape[2]
         qg = _group_q(q, n_kv)
         scale = config.hd ** -0.5
@@ -231,8 +332,8 @@ def attention_block(
         logits = torch.where(valid, logits, NEG_INF)
         w = torch.softmax(logits, dim=-1).to(q.dtype)
         out = torch.einsum("bkgqt,btkh->bqkgh", w, v_all.to(q.dtype))
-        out = out.reshape(b, t, config.n_heads, config.hd)
-        new_state = KVCache(k=k_all, v=v_all, length=start + t)
+        out = out.reshape(b, t, heads.n, config.hd)
+        new_state = KVCache(k=cache.k, v=cache.v, length=start + t)
 
     y = torch.einsum("bthk,hkd->btd", out, params["wo"].to(x.dtype))
     return y, new_state

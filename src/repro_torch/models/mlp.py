@@ -24,6 +24,17 @@ Two details keep the reference's choices token for token:
     reproduces the reference's ``segment_sum`` bit for bit in bfloat16
     and adds in the same order on every device, where an ``index_add_``
     on the card adds with atomics in whatever order they land.
+
+On a mesh (``place``, ``repro_torch.models.common.Placement``) the dense
+MLP computes its ``ffn`` slice where ``ffn`` is in place (the caller
+adds the partial products over the axis).  The MoE layer follows the
+reference's constraints: the tokens go to the ``moe_group`` layout, each
+rank dispatches its own groups, takes its experts' slice of the
+``(G, E, C, d)`` buffer and runs its experts on it (their weights'
+other sharded dims gathered on use), the expert outputs are gathered
+back over ``experts`` and combined group-locally, and the tokens return
+to their batch layout.  The router and the combine run on every rank of
+a group alike; the aux loss's means are taken over the global batch.
 """
 from __future__ import annotations
 
@@ -51,7 +62,12 @@ def mlp_specs(config: ModelConfig, d_ff: int | None = None) -> Dict[str, ParamSp
     return s
 
 
-def mlp_apply(params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def mlp_apply(params, x: torch.Tensor, config: ModelConfig, place=None,
+              specs=None, act: tuple = (), tp: tuple = ()) -> torch.Tensor:
+    """The MLP of ``x``; on a mesh the rank's ``ffn`` slice's partial
+    product where ``tp`` splits ``ffn``."""
+    if place is not None:
+        params = place.weights(params, specs, act, tp, inplace=("ffn",))
     up = x @ params["w_up"].to(x.dtype)
     if config.mlp_gated:
         gate = cm.activate(x @ params["w_gate"].to(x.dtype), config.act)
@@ -164,35 +180,75 @@ def route(params, xf: torch.Tensor, config: ModelConfig):
                                config, _capacity(nt // G, config))
 
 
-def moe_apply(params, x: torch.Tensor, config: ModelConfig):
+def _dense(params, xf, config, place, specs, act):
+    """A dense MLP inside the MoE layer, tensor parallel where its
+    ``ffn`` is in place."""
+    tp = place.split(specs["w_up"], "ffn", act)
+    y = mlp_apply(params, cm.copy_to(xf, place.mesh, tp), config, place,
+                  specs, act, tp)
+    return cm.reduce_from(y, place.mesh, tp)
+
+
+def moe_apply(params, x: torch.Tensor, config: ModelConfig, place=None,
+              specs=None, act: tuple = ()):
     """x: (B, T, d). Returns (y, aux_loss): the routed experts' outputs
     (plus the shared experts' and, for ``arctic``, the residual dense
-    FFN's) and the Switch-style load-balance loss."""
+    FFN's) and the Switch-style load-balance loss.  On a mesh (``place``
+    with the layer's ParamSpecs ``specs``), ``x`` is the rank's batch
+    block over ``act`` of the whole batch, and every rank of a group
+    returns the same; without one, a single rank's placement."""
+    if place is None:
+        place, specs = cm.Placement.single(config), moe_specs(config)
     b, t, d = x.shape
     E, K = config.n_experts, config.top_k
-    nt = b * t
-    xf = x.reshape(nt, d)
-    probs, buf, e_flat, rank_c, keep, gate_vals, expert_idx = route(
-        params, xf, config)
+    mesh = place.mesh
+    nt_l = b * t
+    nt = nt_l * place.n(act)
+    G = moe_groups(nt, config)
+    ntg = nt // G
+    xf = x.reshape(nt_l, d)
+    router = place.weight(params["w_router"], specs["w_router"], act)
+    probs = torch.softmax((xf @ router.to(xf.dtype)).float(), dim=-1)
+    grp = place.layout((G, ntg, d), "moe_group", None, None)[0]
 
-    # ---- expert FFN, batched over the experts ----------------------------
-    up = torch.einsum("gecd,edf->gecf", buf, params["w_up_e"].to(x.dtype))
+    def to_groups(a):
+        a = cm.relayout(a, mesh, (act, ()), (grp, ()))
+        return a.reshape(-1, ntg, a.shape[-1])
+
+    buf, e_flat, rank_c, keep, gate_vals, expert_idx = dispatch(
+        to_groups(xf), to_groups(probs), config, _capacity(ntg, config))
+
+    # ---- expert FFN, batched over the (rank's) experts -------------------
+    names = ("w_up_e", "w_gate_e", "w_down_e")
+    ex = place.layout(buf.shape[:1] + (E,) + buf.shape[2:], "moe_group",
+                      "experts", None, None)[1]
+    split = ex if ex and not set(ex) & set(grp) else ()
+    w = place.weights({k: params[k] for k in names},
+                      {k: specs[k] for k in names}, grp, split,
+                      inplace=("experts",))
+    full, mine = (grp, (), (), ()), (grp, split, (), ())
+    buf = cm.relayout(buf, mesh, full, mine)
+    up = torch.einsum("gecd,edf->gecf", buf, w["w_up_e"].to(x.dtype))
     gate = cm.activate(torch.einsum("gecd,edf->gecf", buf,
-                                    params["w_gate_e"].to(x.dtype)),
-                       config.act)
+                                    w["w_gate_e"].to(x.dtype)), config.act)
     out = torch.einsum("gecf,efd->gecd", gate * up,
-                       params["w_down_e"].to(x.dtype)).to(x.dtype)
+                       w["w_down_e"].to(x.dtype)).to(x.dtype)
+    out = cm.relayout(out, mesh, mine, full)
 
-    y = combine(out, e_flat, rank_c, keep, gate_vals).reshape(nt, d)
+    y = combine(out, e_flat, rank_c, keep, gate_vals).reshape(-1, d)
+    y = cm.relayout(y, mesh, (grp, ()), (act, ()))
     y = y.to(x.dtype)
     if config.n_shared_experts > 0:
-        y = y + mlp_apply(params["shared"], xf, config)
+        y = y + _dense(params["shared"], xf, config, place, specs["shared"],
+                       act)
     if config.moe_style == "arctic":
-        y = y + mlp_apply(params["residual"], xf, config)
+        y = y + _dense(params["residual"], xf, config, place,
+                       specs["residual"], act)
 
-    # ---- load-balance aux loss (Switch-style) ----------------------------
-    me = probs.mean(dim=0)                                  # mean router prob
-    ce = torch.bincount(expert_idx.reshape(-1), minlength=E).float() \
-        / (nt * K)
+    # ---- load-balance aux loss (Switch-style), over the whole batch ------
+    me = cm.reduce_from(probs.sum(dim=0), mesh, act) / nt   # mean router prob
+    counts = place.all_reduce(torch.bincount(expert_idx.reshape(-1),
+                                             minlength=E), grp)
+    ce = counts.float() / (nt * K)
     aux = E * torch.sum(me * ce)
     return y.reshape(b, t, d), aux

@@ -22,6 +22,24 @@ paths as ``state_dict()`` keys (``backbone.unit.0.attn.wq``, stacked over
 layers; ``encoder.*``/``decoder.*`` for the encoder-decoder).  The
 module's own parameters do not require grad (serving takes them as they
 are); a train step passes a tree of its own leaves that do.
+
+On a mesh (``build_model(config, mesh)``, a ``repro_torch.runtime.Mesh``;
+the model's device is then the mesh's) every rank holds exactly its
+block of each leaf as ``shardings_for`` resolves it (``self.shardings``),
+and ``init``, ``load_params`` and ``init_cache`` keep the rank's block.
+Every rank is given the whole batch and computes on its block of it.
+Without a mesh the same code runs under a single rank's placement
+(``common.Placement.single``), where every layout is empty and every
+collective the identity.
+The embedding is vocab-parallel where ``vocab`` is in place (the rank's
+rows, masked, summed over the axis); the logits are the rank's block as
+the reference's ``constrain("batch", None, "vocab")`` lays them out
+(:meth:`_Model.whole` joins them), with the padding mask on the global
+vocab index; the cross-entropy (:func:`token_nll`) reduces its row max,
+log-sum-exp and label logit over the vocab axis, and the loss is the
+global masked mean: its value is the whole batch's on every rank, its
+gradient the rank's part of it, whose sum over the ranks
+``repro_torch.models.common``'s placement rule gives each leaf's block.
 """
 from __future__ import annotations
 
@@ -49,36 +67,23 @@ def _embed_specs(config: ModelConfig) -> Dict[str, ParamSpec]:
     return s
 
 
-def _logits(params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
-    if config.tie_embeddings:
-        w = params["tok_embed"].to(x.dtype).T
-    else:
-        w = params["lm_head"].to(x.dtype)
-    logits = x @ w
-    # mask the vocab padding rows out of the softmax
-    if config.padded_vocab != config.vocab_size:
-        pad_mask = torch.arange(config.padded_vocab,
-                                device=x.device) >= config.vocab_size
-        logits = logits.masked_fill(pad_mask, NEG_INF)
-    return logits
-
-
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Cross-entropy by a one-hot reduction, in float32 (the reference's;
-    no gradient through the row maximum, as its ``stop_gradient``)."""
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, place,
+              tp: tuple = (), v0: int = 0) -> torch.Tensor:
+    """The per-token negative log-likelihood of the reference's
+    ``softmax_xent``, in float32, from the rank's vocab slice ``[v0, v0 +
+    V)`` of ``logits`` (split over ``tp``; the whole vocab for none): the
+    row max (no gradient through it, as the reference's
+    ``stop_gradient``), the sum of exponentials and the label's logit
+    are each reduced over ``tp``; no one-hot wider than the slice."""
+    mesh = place.mesh
     lf = logits.float()
-    m = lf.amax(dim=-1, keepdim=True).detach()
+    m = place.all_reduce(lf.amax(dim=-1, keepdim=True), tp, "max")
     shifted = lf - m
-    lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    onehot = nn.functional.one_hot(labels.long(), logits.shape[-1]).float()
-    label_logit = (shifted * onehot).sum(dim=-1)
-    nll = lse - label_logit
-    if valid_mask is not None:
-        valid_mask = valid_mask.float()
-        nll = nll * valid_mask
-        return nll.sum() / torch.clamp(valid_mask.sum(), min=1.0)
-    return nll.mean()
+    lse = torch.log(cm.reduce_from(torch.exp(shifted).sum(dim=-1), mesh, tp))
+    cols = torch.arange(v0, v0 + logits.shape[-1], device=logits.device)
+    onehot = (cols == labels.long()[..., None]).float()
+    label_logit = cm.reduce_from((shifted * onehot).sum(dim=-1), mesh, tp)
+    return lse - label_logit
 
 
 def lm_param_specs(config: ModelConfig,
@@ -130,18 +135,46 @@ class _Model(nn.Module):
     device raises).  Until :meth:`init` or :meth:`load_params` the
     parameters are ``meta`` tensors.  The methods take the parameter
     tree explicitly, as the reference's do; :meth:`params` returns the
-    module's own."""
+    module's own.  ``self.place`` places every computation: the mesh's
+    placement, or a single rank's without a mesh (the same code)."""
 
     def __init__(self, config: ModelConfig, mesh=None,
                  device: DeviceLike = None):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "a model on a mesh waits for the launch slice (ROADMAP "
-                "Queue A item (e), launch/mesh.py)")
         self.config = config
-        self.device = resolve_device(device)
-        self._set(cm.abstract_tree(self.param_specs(), config.param_dtype))
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device if mesh is not None and device is None else device)
+        specs = self.param_specs()
+        self.place, self.shardings = cm.Placement.single(config), None
+        if mesh is not None:
+            self.place = cm.Placement(mesh, config)
+            self.shardings = cm.shardings_for(specs, config, mesh)
+        sh = self._sharding_of()
+        self._set(cm.tree_map_with_path(
+            lambda path, s: torch.empty(
+                sh[path].shard_shape(s.shape) if sh else s.shape,
+                dtype=config.param_dtype, device="meta"), specs, cm.is_spec))
+
+    def _sharding_of(self) -> Dict[str, cm.Sharding]:
+        """path -> the leaf's Sharding ({} without a mesh)."""
+        return dict(cm.tree_leaves_with_path(
+            self.shardings, lambda x: isinstance(x, cm.Sharding)))
+
+    def block(self, tree):
+        """The rank's blocks of a tree of whole leaves (the tree itself
+        without a mesh)."""
+        if self.mesh is None:
+            return tree
+        return cm.tree_blocks(tree, self.shardings)
+
+    def whole(self, x: torch.Tensor, shape, *logical_axes) -> torch.Tensor:
+        """The whole array (of ``shape``) of the rank's block ``x`` of an
+        activation laid out as ``logical_axes`` resolve for ``shape``
+        (the logits: ``"batch", None, "vocab"``), gathered from the
+        ranks; ``x`` itself without a mesh."""
+        layout = self.place.layout(tuple(shape), *logical_axes)
+        return cm.relayout(x, self.place.mesh, layout, ((),) * x.dim())
 
     def _set(self, tree) -> Dict[str, Any]:
         self._trees = tuple(tree)
@@ -164,27 +197,130 @@ class _Model(nn.Module):
         stacked = tuple(f"{key}.unit." for key in self._trees)
         return self._set(cm.init_tree(
             generator, self.param_specs(), self.config.param_dtype,
-            self.device, stacked=stacked))
+            self.device, stacked=stacked, shardings=self.shardings))
 
     def load_params(self, tree) -> Dict[str, Any]:
         """Take ``tree`` (the reference's layout, tensors) as the module's
         parameters, on this model's device in ``config.param_dtype``;
-        raises on a missing, extra or misshapen leaf."""
+        raises on a missing, extra or misshapen leaf.  On a mesh the
+        rank keeps its block of each whole leaf."""
         check_tree(tree, self.param_specs())
         dtype, device = self.config.param_dtype, self.device
-        return self._set(cm.tree_map(
-            lambda t: t.to(device=device, dtype=dtype), tree, _is_tensor))
+        return self._set(self.block(cm.tree_map(
+            lambda t: t.to(device=device, dtype=dtype), tree, _is_tensor)))
 
-    def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        # gathered, then cast (the same values as the reference's cast
-        # table, gathered): the backward sums a token's rows in the table's
-        # float32, where the reference's scatter-add sums them in the
-        # compute type (PERF.md §6)
-        return params["embed"]["tok_embed"][tokens.long()].to(
+    def _ctx(self, mode: str, tokens: torch.Tensor, max_cache_len: int = 0,
+             **kw):
+        """(the residual layout, the blocks' context) of a batch of
+        ``tokens`` (the whole batch)."""
+        b, t = tokens.shape
+        res = self.place.residual((b, t, self.config.d_model),
+                                  decode=mode == "decode")
+        positions = (None if mode == "decode" else
+                     torch.arange(t, device=self.device))
+        return res, tfm.BlockCtx(config=self.config, mode=mode,
+                                 positions=positions,
+                                 max_cache_len=max_cache_len,
+                                 place=self.place, res=res, **kw)
+
+    def _check_capacity(self, tokens: torch.Tensor, max_len: int) -> int:
+        """The cache's capacity for a prefill of ``tokens`` reserving
+        ``max_len`` (the prompt's length at least)."""
+        cap = max(max_len, tokens.shape[1])
+        tfm.check_capacity(self.place, self.config, tokens.shape[0], cap)
+        return cap
+
+    def _decode(self, params, tokens, cache, plan, key: str):
+        res, ctx = self._ctx("decode", tokens)
+        x = self._to_residual(self._embed_block(params, tokens, res[0]), res)
+        x, cache, _ = tfm.backbone_apply(params[key], x, ctx, cache=cache,
+                                         plan=plan)
+        return self._logits(params, x, res)[0], cache
+
+    # -- embeddings, logits, loss -------------------------------------------
+    def _embed_specs(self) -> Dict[str, ParamSpec]:
+        return self.place.memo("embed_specs",
+                               lambda: _embed_specs(self.config))
+
+    def _embed_block(self, params, tokens: torch.Tensor, act: tuple):
+        """The rank's batch block (over ``act``) of the token embeddings,
+        whole sequence and width: vocab-parallel where ``vocab`` is in
+        place (the rank's rows, masked, summed over the axis).  Gathered,
+        then cast (the same values as the reference's cast table,
+        gathered): the backward sums a token's rows in the table's
+        float32, where the reference's scatter-add sums them in the
+        compute type (PERF.md §6)."""
+        place, config, mesh = self.place, self.config, self.place.mesh
+        spec = self._embed_specs()["tok_embed"]
+        tp = place.split(spec, "vocab", act)
+        tokens = cm.block_of(tokens, mesh, (act, ())).long()
+        table = place.weight(params["embed"]["tok_embed"], spec, act, tp,
+                             inplace=("vocab",))
+        if not tp:
+            return table[tokens].to(config.dtype)
+        n = table.shape[0]
+        local = tokens - place.index(tp) * n
+        inside = (local >= 0) & (local < n)
+        x = table[local.clamp(0, n - 1)].to(config.dtype)
+        x = torch.where(inside[..., None], x,
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+        return cm.reduce_from(x, mesh, tp)
+
+    def _project_block(self, params, name: str, a: torch.Tensor,
+                       act: tuple) -> torch.Tensor:
+        """The rank's batch block of ``a`` (a frontend's embeddings, the
+        whole batch) through the ``name`` projection."""
+        spec = self._embed_specs()[name]
+        w = self.place.weight(params["embed"][name], spec, act)
+        a = cm.block_of(a, self.place.mesh, (act, (), ())).to(
             self.config.dtype)
+        return a @ w.to(self.config.dtype)
 
-    def _positions(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.arange(x.shape[1], device=x.device)
+    def _to_residual(self, x: torch.Tensor, res: tuple) -> torch.Tensor:
+        return cm.relayout(x, self.place.mesh, self.place.block(res), res)
+
+    def _logits(self, params, x: torch.Tensor, res: tuple,
+                last: bool = False):
+        """(the rank's logits block, the vocab's axes, the block's first
+        vocab index) of the residual ``x`` (at its last position with
+        ``last``); the vocab padding masked out of the softmax."""
+        config, place = self.config, self.place
+        act = res[0]
+        name = "tok_embed" if config.tie_embeddings else "lm_head"
+        spec = self._embed_specs()[name]
+        tp = place.split(spec, "vocab", act)
+        h = place.enter(x, res, tp)
+        if last:
+            h = h[:, -1:, :]
+        w = place.weight(params["embed"][name], spec, act, tp,
+                         inplace=("vocab",)).to(h.dtype)
+        logits = h @ (w.T if config.tie_embeddings else w)
+        v0 = place.index(tp) * logits.shape[-1]
+        if config.padded_vocab != config.vocab_size:
+            cols = torch.arange(v0, v0 + logits.shape[-1], device=h.device)
+            logits = logits.masked_fill(cols >= config.vocab_size, NEG_INF)
+        return logits, tp, v0
+
+    def _loss(self, params, x: torch.Tensor, res: tuple, batch, aux):
+        """The global masked mean of the cross-entropy (its value on
+        every rank, the rank's part of its gradient) plus the aux loss,
+        and the metrics."""
+        place, act = self.place, res[0]
+        logits, tp, v0 = self._logits(params, x, res)
+        labels = cm.block_of(batch["labels"], place.mesh, (act, ()))
+        nll = token_nll(logits, labels, place, tp, v0)
+        mask = batch.get("loss_mask")
+        if mask is None:
+            part = nll.mean() * (nll.numel() / batch["labels"].numel())
+        else:
+            mask = mask.float()
+            part = (nll * cm.block_of(mask, place.mesh, (act, ()))).sum() \
+                / torch.clamp(mask.sum(), min=1.0)
+        # the whole batch's value on every rank, the rank's part's gradient
+        ce = place.all_reduce(part, act) + (part - part.detach())
+        if not isinstance(aux, torch.Tensor):     # no MoE layer: 0.0
+            aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 class LM(_Model):
@@ -199,61 +335,42 @@ class LM(_Model):
         return lm_param_specs(self.config, self.plan)
 
     # -- shared input processing ------------------------------------------
-    def _embed_inputs(self, params, batch) -> torch.Tensor:
-        config = self.config
-        x = self._embed_tokens(params, batch["tokens"])
-        if config.frontend == "patch_stub" and "patch_embeds" in batch:
-            p = batch["patch_embeds"].to(config.dtype)
-            p = p @ params["embed"]["patch_proj"].to(config.dtype)
-            n = p.shape[1]
-            x = torch.cat([p, x[:, n:, :]], dim=1)   # patches prepend
-        return x
+    def _embed_inputs(self, params, batch, res: tuple):
+        x = self._embed_block(params, batch["tokens"], res[0])
+        if self.config.frontend == "patch_stub" and "patch_embeds" in batch:
+            p = self._project_block(params, "patch_proj",
+                                    batch["patch_embeds"], res[0])
+            x = torch.cat([p, x[:, p.shape[1]:, :]], dim=1)  # patches prepend
+        return self._to_residual(x, res)
 
     # -- training ----------------------------------------------------------
     def loss(self, params, batch):
-        config = self.config
-        x = self._embed_inputs(params, batch)
-        ctx = tfm.BlockCtx(config=config, mode="train",
-                           positions=self._positions(x), max_cache_len=0)
+        res, ctx = self._ctx("train", batch["tokens"])
+        x = self._embed_inputs(params, batch, res)
         x, _, aux = tfm.backbone_apply(params["backbone"], x, ctx,
                                        plan=self.plan)
-        logits = _logits(params["embed"], x, config)
-        ce = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
-        if not isinstance(aux, torch.Tensor):     # no MoE layer: 0.0
-            aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        total = ce + 0.01 * aux
-        return total, {"ce": ce, "aux": aux}
+        return self._loss(params, x, res, batch, aux)
 
     # -- serving -----------------------------------------------------------
     def prefill(self, params, batch, max_len: int = 0):
         """Build the cache; ``max_len`` reserves decode capacity beyond
         the prompt (defaults to prompt length - no decode room)."""
-        config = self.config
-        x = self._embed_inputs(params, batch)
-        ctx = tfm.BlockCtx(config=config, mode="prefill",
-                           positions=self._positions(x),
-                           max_cache_len=max(max_len, x.shape[1]))
+        cap = self._check_capacity(batch["tokens"], max_len)
+        res, ctx = self._ctx("prefill", batch["tokens"], cap)
+        x = self._embed_inputs(params, batch, res)
         x, cache, _ = tfm.backbone_apply(params["backbone"], x, ctx,
                                          plan=self.plan)
-        logits = _logits(params["embed"], x[:, -1:, :], config)
-        return logits, cache
+        return self._logits(params, x, res, last=True)[0], cache
 
     def decode_step(self, params, tokens: torch.Tensor, cache):
         """One step of ``tokens`` (B, t) against ``cache``, which it
         consumes: the step writes its K/V and new recurrent states into
         the cache's tensors and returns them with the new lengths."""
-        config = self.config
-        x = self._embed_tokens(params, tokens)
-        ctx = tfm.BlockCtx(config=config, mode="decode", positions=None,
-                           max_cache_len=0)
-        x, cache, _ = tfm.backbone_apply(
-            params["backbone"], x, ctx, cache=cache, plan=self.plan)
-        logits = _logits(params["embed"], x, config)
-        return logits, cache
+        return self._decode(params, tokens, cache, self.plan, "backbone")
 
     def init_cache(self, batch: int, max_len: int):
         return tfm.init_cache(self.config, batch, max_len, plan=self.plan,
-                              device=self.device)
+                              device=self.device, mesh=self.mesh)
 
 
 def check_tree(tree, specs) -> None:
@@ -286,58 +403,54 @@ class Seq2Seq(_Model):
     def param_specs(self):
         return lm_param_specs(self.config)
 
-    def encode(self, params, batch) -> torch.Tensor:
-        config = self.config
-        frames = batch["frame_embeds"].to(config.dtype)
-        x = frames @ params["embed"]["frame_proj"].to(config.dtype)
-        ctx = tfm.BlockCtx(config=config, mode="train",
-                           positions=self._positions(x), max_cache_len=0)
-        x, _, _ = tfm.backbone_apply(params["encoder"], x, ctx,
+    def _encode(self, params, batch):
+        """(the encoder's output, its residual layout)."""
+        frames = batch["frame_embeds"]
+        b, t = frames.shape[:2]
+        res = self.place.residual((b, t, self.config.d_model))
+        x = self._project_block(params, "frame_proj", frames, res[0])
+        ctx = tfm.BlockCtx(config=self.config, mode="train",
+                           positions=torch.arange(t, device=self.device),
+                           max_cache_len=0, place=self.place, res=res)
+        x, _, _ = tfm.backbone_apply(params["encoder"],
+                                     self._to_residual(x, res), ctx,
                                      plan=self.enc_plan)
-        return x
+        return x, res
+
+    def encode(self, params, batch) -> torch.Tensor:
+        """The encoder's output (on a mesh: the rank's block of it, laid
+        out as ``"batch", "seq", "embed"`` resolve)."""
+        return self._encode(params, batch)[0]
+
+    def _decoder(self, params, batch, mode: str, max_len: int = 0):
+        enc_out, enc_res = self._encode(params, batch)
+        tokens = batch["tokens"]
+        res, ctx = self._ctx(mode, tokens, max_len, enc_out=enc_out,
+                             enc_res=enc_res)
+        x = self._to_residual(self._embed_block(params, tokens, res[0]), res)
+        x, cache, _ = tfm.backbone_apply(params["decoder"], x, ctx,
+                                         plan=self.dec_plan)
+        return x, cache, res
 
     def loss(self, params, batch):
-        config = self.config
-        enc_out = self.encode(params, batch)
-        x = self._embed_tokens(params, batch["tokens"])
-        ctx = tfm.BlockCtx(config=config, mode="train",
-                           positions=self._positions(x), max_cache_len=0,
-                           enc_out=enc_out)
-        x, _, _ = tfm.backbone_apply(params["decoder"], x, ctx,
-                                     plan=self.dec_plan)
-        logits = _logits(params["embed"], x, config)
-        ce = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
-        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+        x, _, res = self._decoder(params, batch, "train")
+        return self._loss(params, x, res, batch, 0.0)
 
     def prefill(self, params, batch, max_len: int = 0):
         """Encode ``frame_embeds``, then prefill the decoder with
         ``tokens``; the cache holds each layer's cross K/V."""
-        config = self.config
-        enc_out = self.encode(params, batch)
-        x = self._embed_tokens(params, batch["tokens"])
-        ctx = tfm.BlockCtx(config=config, mode="prefill",
-                           positions=self._positions(x),
-                           max_cache_len=max(max_len, x.shape[1]),
-                           enc_out=enc_out)
-        x, cache, _ = tfm.backbone_apply(params["decoder"], x, ctx,
-                                         plan=self.dec_plan)
-        logits = _logits(params["embed"], x[:, -1:, :], config)
-        return logits, cache
+        cap = self._check_capacity(batch["tokens"], max_len)
+        x, cache, res = self._decoder(params, batch, "prefill", cap)
+        return self._logits(params, x, res, last=True)[0], cache
 
     def decode_step(self, params, tokens: torch.Tensor, cache):
         """As :meth:`LM.decode_step`: consumes ``cache``."""
-        x = self._embed_tokens(params, tokens)
-        ctx = tfm.BlockCtx(config=self.config, mode="decode",
-                           positions=None, max_cache_len=0)
-        x, cache, _ = tfm.backbone_apply(
-            params["decoder"], x, ctx, cache=cache, plan=self.dec_plan)
-        logits = _logits(params["embed"], x, self.config)
-        return logits, cache
+        return self._decode(params, tokens, cache, self.dec_plan, "decoder")
 
     def init_cache(self, batch: int, max_len: int, src_len: int = 0):
         return tfm.init_cache(self.config, batch, max_len,
                               plan=self.dec_plan, device=self.device,
-                              src_len=src_len or max_len)
+                              src_len=src_len or max_len, mesh=self.mesh)
 
 
 def build_model(config: ModelConfig, mesh=None,

@@ -25,6 +25,25 @@ writes its K/V into the cache's tensors (``attention.attention_block``),
 and the recurrent blocks' new states (which ``ssm`` computes as new
 tensors) are copied into the given state's tensors.  The returned cache
 holds the given tensors, with the new lengths, for every block kind.
+
+Every block runs one body, on a mesh or not: ``BlockCtx.place`` (a
+``repro_torch.models.common.Placement``) places it, and a context made
+without one gets the placement of a single rank (:func:`placed`), under
+which every layout is empty and every collective the identity, so the
+body computes op for op what a mesh-less body would.  On a mesh the
+residual stream between blocks is laid out as the reference's
+``constrain(x, "batch", "seq", "embed")`` resolves (``ctx.res``; in
+decode ``"batch", None, "embed"``), which makes its ``_anchor`` between
+repetitions hold by construction.  Each sub-block (attention, MLP, MoE,
+recurrent, the final norm) enters from that layout and leaves to it
+(``Placement.enter``/``exit``), tensor parallel where its main weight
+dim is in place.  Caches are held as :func:`cache_shardings` resolves
+them: prefill cuts each layer's cache to the rank's block, a recurrent
+decode gathers its state, steps it and cuts it back, an attention decode
+works on the rank's block (``attention._decode_seq_sharded`` where the
+positions are sharded).  The recurrent blocks gather their weights on
+use and compute alike on the ranks of a batch block (no head-parallel
+scan).
 """
 from __future__ import annotations
 
@@ -98,6 +117,181 @@ class BlockCtx(NamedTuple):
     positions: Optional[torch.Tensor]
     max_cache_len: int
     enc_out: Optional[torch.Tensor] = None   # encoder memory (enc-dec)
+    place: Any = None          # common.Placement (None: one rank)
+    res: tuple = ()            # the residual stream's layout
+    enc_res: tuple = ()        # enc_out's layout
+
+
+def placed(ctx: BlockCtx) -> BlockCtx:
+    """``ctx`` with a placement: one made without (no mesh) gets a single
+    rank's, whose layouts are all empty."""
+    if ctx.place is not None:
+        return ctx
+    flat = ((),) * 3
+    return ctx._replace(place=cm.Placement.single(ctx.config), res=flat,
+                        enc_res=flat)
+
+
+# ---------------------------------------------------------------------------
+# Sub-blocks
+# ---------------------------------------------------------------------------
+
+def _global_batch(ctx: BlockCtx, x: torch.Tensor) -> int:
+    return x.shape[0] * ctx.place.n(ctx.res[0])
+
+
+def _kv_layout(ctx: BlockCtx, batch: int, seq: int) -> tuple:
+    c = ctx.config
+    return ctx.place.layout((batch, seq, c.n_kv_heads, c.hd),
+                            "batch", "kv_seq", "kv_heads", None)
+
+
+def _decode_seq_axes(ctx: BlockCtx, cache, batch: int) -> tuple:
+    """The axes a decode cache's positions are sharded over: a cache of
+    ``s`` local positions is ``s * n`` positions long where the model
+    axis (of size ``n``) shards them, which ``check_capacity`` ensures
+    whenever it can."""
+    place, s = ctx.place, cache.k.shape[1]
+    if "model" in place.mesh.shape:
+        seq = _kv_layout(ctx, batch, s * place.mesh.shape["model"])[1]
+        if seq:
+            return seq
+    return ()
+
+
+def check_capacity(place, config: ModelConfig, batch: int,
+                   max_len: int) -> None:
+    """Raise ``ValueError`` where a cache of ``max_len`` positions would
+    leave the model axis unused by its positions only for want of
+    divisibility (``shard_cache_seq``): a decode reads the sharding of
+    a cache's positions from its block's length."""
+    mesh = place.mesh
+    if not config.shard_cache_seq or mesh.shape.get("model", 1) == 1:
+        return
+    m = mesh.shape["model"]
+    seq = place.layout((batch, max_len * m, config.n_kv_heads, config.hd),
+                       "batch", "kv_seq", "kv_heads", None)[1]
+    if seq and max_len % m:
+        raise ValueError(f"a cache of {max_len} positions does not divide "
+                         f"into the model axis's {m} blocks "
+                         f"(shard_cache_seq)")
+
+
+def _attn_sub(params, ln, x, ctx: BlockCtx, specs, ln_specs, cache=None,
+              causal: bool = True):
+    """Pre-norm attention sub-block: (the residual's update,
+    the layer's new cache (prefill: cut to its block; decode: the given
+    tensors))."""
+    place, config, res = ctx.place, ctx.config, ctx.res
+    act = res[0]
+    tp = place.split(specs["wq"], "heads", act)
+    h = place.enter(x, res, tp)
+    h = cm.apply_norm(h, place.weights(ln, ln_specs, act, tp), config)
+    if ctx.mode == "decode":
+        out, new_cache = attn.attention_block(
+            params, h, config, cache=cache, place=place, specs=specs,
+            act=act, tp=tp,
+            seq_axes=_decode_seq_axes(ctx, cache, _global_batch(ctx, x)))
+        return place.exit(out, res, tp), new_cache
+    out, (k, v) = attn.attention_block(
+        params, h, config, positions=ctx.positions, causal=causal,
+        place=place, specs=specs, act=act, tp=tp)
+    new_cache = None
+    if ctx.mode == "prefill":
+        dst = _kv_layout(ctx, _global_batch(ctx, x), ctx.max_cache_len)
+        src = (act, (), tp if k.shape[2] != config.n_kv_heads else (), ())
+
+        def put(t):
+            t = _pad_cache_len(t.to(config.dtype), ctx.max_cache_len)
+            return cm.relayout(t, place.mesh, src, dst).contiguous()
+
+        new_cache = attn.KVCache(k=put(k), v=put(v), length=k.shape[1])
+    return place.exit(out, res, tp), new_cache
+
+
+def _mlp_sub(params, ln, x, ctx: BlockCtx, specs, ln_specs):
+    place, res = ctx.place, ctx.res
+    act = res[0]
+    tp = place.split(specs["w_up"], "ffn", act)
+    h = place.enter(x, res, tp)
+    h = cm.apply_norm(h, place.weights(ln, ln_specs, act, tp), ctx.config)
+    y = mlp_mod.mlp_apply(params, h, ctx.config, place, specs, act, tp)
+    return place.exit(y, res, tp)
+
+
+def _moe_sub(params, ln, x, ctx: BlockCtx, specs, ln_specs):
+    place, res = ctx.place, ctx.res
+    act = res[0]
+    h = place.enter(x, res)
+    h = cm.apply_norm(h, place.weights(ln, ln_specs, act), ctx.config)
+    y, aux = mlp_mod.moe_apply(params, h, ctx.config, place, specs, act)
+    return place.exit(y, res), aux
+
+
+def _state_layouts(ctx: BlockCtx, btype: str, batch: int):
+    """A recurrent block's state leaves: (their layout as a whole on the
+    rank's batch block, their cache layout)."""
+    place, act = ctx.place, ctx.res[0]
+
+    def make():
+        shapes = init_block_cache(btype, batch, 0, ctx.config, "meta")
+        axes = block_cache_axes(btype, ctx.config)
+        whole = cm.tree_map(lambda t: (act,) + ((),) * (t.dim() - 1),
+                            shapes, _is_cache_leaf)
+        held = _zip_cache(lambda t, a: place.layout(t.shape, *a.axes),
+                          shapes, axes)
+        return whole, held
+
+    return place.memo(("state", btype, batch, act), make)
+
+
+def _zip_cache(fn, cache, axes):
+    """``fn(leaf, ax)`` over a cache's tensors and its :class:`Ax` tree."""
+    ax_of = dict(cm.tree_leaves_with_path(axes, lambda a: isinstance(a, Ax)))
+    return cm.tree_map_with_path(
+        lambda path, t: fn(t, ax_of[path]) if isinstance(t, torch.Tensor)
+        else t, cache, _is_cache_leaf)
+
+
+def _relayout_tree(place, tree, src, dst):
+    if place.one_rank:
+        return tree
+    lay_src = dict(cm.tree_leaves_with_path(src, _is_layout))
+    lay_dst = dict(cm.tree_leaves_with_path(dst, _is_layout))
+    return cm.tree_map_with_path(
+        lambda path, t: cm.relayout(t, place.mesh, lay_src[path],
+                                    lay_dst[path]).contiguous()
+        if isinstance(t, torch.Tensor) else t, tree, _is_cache_leaf)
+
+
+def _is_layout(x) -> bool:
+    return (isinstance(x, tuple) and not hasattr(x, "_fields")
+            and all(isinstance(a, tuple)
+                    and all(isinstance(n, str) for n in a) for a in x))
+
+
+def _recurrent_block(key, apply, decode, params, x, ctx, cache, specs):
+    """A recurrent block (``key``: its block type and its
+    parameters' key): the weights gathered on use, the state gathered for
+    a decode step and cut back to the cache's layout."""
+    place, config, res = ctx.place, ctx.config, ctx.res
+    act = res[0]
+    h = place.enter(x, res)
+    h = cm.apply_norm(h, place.weights(params["ln"], specs["ln"], act),
+                      config)
+    w = place.weights(params[key], specs[key], act)
+    new_cache = None
+    if ctx.mode == "train":
+        y = apply(w, h, config)
+    else:
+        whole, held = _state_layouts(ctx, key, _global_batch(ctx, x))
+        if ctx.mode == "prefill":
+            y, state = apply(w, h, config, return_state=True)
+        else:
+            y, state = decode(w, h, config,
+                              _relayout_tree(place, cache, held, whole))
+        new_cache = _relayout_tree(place, state, whole, held)
+    return x + place.exit(y, res), new_cache
 
 
 def _attn_mlp_specs(config: ModelConfig, dense_ff: bool = False):
@@ -118,31 +312,13 @@ def _pad_cache_len(k: torch.Tensor, max_len: int) -> torch.Tensor:
     return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
 
 
-def _apply_attn(params, x: torch.Tensor, ctx: BlockCtx, cache):
-    config = ctx.config
-    h = cm.apply_norm(x, params["ln_attn"], config)
-    if ctx.mode == "train":
-        out, _ = attn.attention_block(
-            params["attn"], h, config, positions=ctx.positions, cache=None)
-        new_cache = None
-    elif ctx.mode == "prefill":
-        out, (k, v) = attn.attention_block(
-            params["attn"], h, config, positions=ctx.positions, cache=None)
-        new_cache = attn.KVCache(
-            k=_pad_cache_len(k.to(config.dtype), ctx.max_cache_len),
-            v=_pad_cache_len(v.to(config.dtype), ctx.max_cache_len),
-            length=x.shape[1],
-        )
-    else:  # decode
-        out, new_cache = attn.attention_block(params["attn"], h, config,
-                                              cache=cache)
-    return x + out, new_cache
-
-
-def _apply_attn_mlp(params, x: torch.Tensor, ctx: BlockCtx, cache):
-    x, new_cache = _apply_attn(params, x, ctx, cache)
-    h = cm.apply_norm(x, params["ln_mlp"], ctx.config)
-    x = x + mlp_mod.mlp_apply(params["mlp"], h, ctx.config)
+def _apply_attn_mlp(params, x: torch.Tensor, ctx: BlockCtx, cache,
+                    specs):
+    out, new_cache = _attn_sub(params["attn"], params["ln_attn"], x, ctx,
+                               specs["attn"], specs["ln_attn"], cache)
+    x = x + out
+    x = x + _mlp_sub(params["mlp"], params["ln_mlp"], x, ctx, specs["mlp"],
+                     specs["ln_mlp"])
     return x, new_cache, 0.0
 
 
@@ -155,10 +331,13 @@ def _attn_moe_specs(config: ModelConfig):
     }
 
 
-def _apply_attn_moe(params, x: torch.Tensor, ctx: BlockCtx, cache):
-    x, new_cache = _apply_attn(params, x, ctx, cache)
-    h = cm.apply_norm(x, params["ln_mlp"], ctx.config)
-    y, aux = mlp_mod.moe_apply(params["moe"], h, ctx.config)
+def _apply_attn_moe(params, x: torch.Tensor, ctx: BlockCtx, cache,
+                    specs):
+    out, new_cache = _attn_sub(params["attn"], params["ln_attn"], x, ctx,
+                               specs["attn"], specs["ln_attn"], cache)
+    x = x + out
+    y, aux = _moe_sub(params["moe"], params["ln_mlp"], x, ctx, specs["moe"],
+                      specs["ln_mlp"])
     return x + y, new_cache, aux
 
 
@@ -170,16 +349,10 @@ def _recurrent(key: str, specs_fn, apply, decode):
         return {"ln": cm.norm_params(config, config.d_model),
                 key: specs_fn(config)}
 
-    def run(params, x: torch.Tensor, ctx: BlockCtx, cache):
-        config = ctx.config
-        h = cm.apply_norm(x, params["ln"], config)
-        if ctx.mode == "train":
-            y, new_cache = apply(params[key], h, config), None
-        elif ctx.mode == "prefill":
-            y, new_cache = apply(params[key], h, config, return_state=True)
-        else:
-            y, new_cache = decode(params[key], h, config, cache)
-        return x + y, new_cache, 0.0
+    def run(params, x: torch.Tensor, ctx: BlockCtx, cache, specs):
+        y, new_cache = _recurrent_block(key, apply, decode, params, x, ctx,
+                                        cache, specs)
+        return y, new_cache, 0.0
 
     return specs, run
 
@@ -191,22 +364,21 @@ def _shared_attn_specs(config: ModelConfig):
     }
 
 
-def _apply_shared_attn(params, x: torch.Tensor, ctx: BlockCtx, cache):
-    x, new_cache = _apply_attn(
-        {"ln_attn": params["ln"], "attn": params["attn"]}, x, ctx, cache)
-    return x, new_cache, 0.0
+def _apply_shared_attn(params, x: torch.Tensor, ctx: BlockCtx, cache,
+                       specs):
+    out, new_cache = _attn_sub(params["attn"], params["ln"], x, ctx,
+                               specs["attn"], specs["ln"], cache)
+    return x + out, new_cache, 0.0
 
 
-def _apply_enc_attn_mlp(params, x: torch.Tensor, ctx: BlockCtx, cache):
+def _apply_enc_attn_mlp(params, x: torch.Tensor, ctx: BlockCtx, cache,
+                        specs):
     """Bidirectional encoder block — never cached."""
-    config = ctx.config
-    h = cm.apply_norm(x, params["ln_attn"], config)
-    out, _ = attn.attention_block(params["attn"], h, config,
-                                  positions=ctx.positions, causal=False,
-                                  cache=None)
+    out, _ = _attn_sub(params["attn"], params["ln_attn"], x, ctx,
+                       specs["attn"], specs["ln_attn"], causal=False)
     x = x + out
-    h = cm.apply_norm(x, params["ln_mlp"], config)
-    x = x + mlp_mod.mlp_apply(params["mlp"], h, config)
+    x = x + _mlp_sub(params["mlp"], params["ln_mlp"], x, ctx, specs["mlp"],
+                     specs["ln_mlp"])
     return x, None, 0.0
 
 
@@ -227,27 +399,39 @@ def _cross_kv(params, enc_out: torch.Tensor, config: ModelConfig):
     return k, v
 
 
-def _apply_dec_block(params, x: torch.Tensor, ctx: BlockCtx, cache):
+def _apply_dec_block(params, x: torch.Tensor, ctx: BlockCtx, cache,
+                     specs):
     """Decoder block: causal self-attn (cached) + cross-attn + MLP.
 
     Cache layout: {"self": KVCache, "cross_k": ..., "cross_v": ...} — the
     cross K/V are computed once from the encoder memory at prefill and
     reused every decode step.
     """
-    config = ctx.config
-    x, self_cache = _apply_attn(
-        {"ln_attn": params["ln_self"], "attn": params["self_attn"]}, x, ctx,
-        cache["self"] if ctx.mode == "decode" else None)
-    h = cm.apply_norm(x, params["ln_cross"], config)
+    place, config, res = ctx.place, ctx.config, ctx.res
+    act = res[0]
+    out, self_cache = _attn_sub(
+        params["self_attn"], params["ln_self"], x, ctx, specs["self_attn"],
+        specs["ln_self"], cache["self"] if ctx.mode == "decode" else None)
+    x = x + out
+    cspecs = specs["cross_attn"]
+    tp = place.split(cspecs["wq"], "heads", act)
+    h = place.enter(x, res, tp)
+    h = cm.apply_norm(h, place.weights(params["ln_cross"], specs["ln_cross"],
+                                       act, tp), config)
     if ctx.mode == "decode":
         ck, cv = cache["cross_k"].to(h.dtype), cache["cross_v"].to(h.dtype)
     else:
-        ck, cv = _cross_kv(params["cross_attn"], ctx.enc_out, config)
+        enc = place.enter(ctx.enc_out, ctx.enc_res, tp)
+        kv = {k: params["cross_attn"][k] for k in ("wk", "wv")}
+        ck, cv = _cross_kv(
+            place.weights(kv, {k: cspecs[k] for k in kv}, act, tp,
+                          inplace=("kv_heads",)), enc, config)
     out, _ = attn.attention_block(params["cross_attn"], h, config,
-                                  cross_kv=(ck, cv))
-    x = x + out
-    h = cm.apply_norm(x, params["ln_mlp"], config)
-    x = x + mlp_mod.mlp_apply(params["mlp"], h, config)
+                                  cross_kv=(ck, cv), place=place,
+                                  specs=cspecs, act=act, tp=tp)
+    x = x + place.exit(out, res, tp)
+    x = x + _mlp_sub(params["mlp"], params["ln_mlp"], x, ctx, specs["mlp"],
+                     specs["ln_mlp"])
     if ctx.mode == "train":
         return x, None, 0.0
     return x, {"self": self_cache, "cross_k": ck.to(config.dtype),
@@ -322,6 +506,95 @@ def _is_cache_leaf(x) -> bool:
     return isinstance(x, (torch.Tensor, int))
 
 
+class Ax:
+    """Logical-axes annotation of a cache leaf, a leaf itself (a plain
+    tuple would be walked as a container), so an axes tree zips against
+    a cache tree."""
+
+    def __init__(self, *axes):
+        self.axes = axes
+
+    def __repr__(self):
+        return f"Ax{self.axes}"
+
+    def __eq__(self, other):
+        return isinstance(other, Ax) and self.axes == other.axes
+
+
+def block_cache_axes(btype: str, config: ModelConfig):
+    """Logical axes for one block's cache, mirroring init_block_cache.
+
+    KV caches carry ("batch", "kv_seq", "kv_heads", None): with
+    ``shard_cache_seq`` the seq dim takes the model axis; otherwise
+    kv_heads does — resolve_spec's used-axis bookkeeping makes the two
+    mutually exclusive.  A ``length`` is ``Ax()``."""
+    kv = Ax("batch", "kv_seq", "kv_heads", None)
+    if btype in _ATTN_BLOCKS:
+        return attn.KVCache(k=kv, v=kv, length=Ax())
+    if btype == "dec_block":
+        cross = Ax("batch", None, "kv_heads", None)
+        return {"self": attn.KVCache(k=kv, v=kv, length=Ax()),
+                "cross_k": cross, "cross_v": cross}
+    if btype in ("mamba", "mlstm"):
+        return ssm_mod.SSMState(conv=Ax("batch", None, "ffn"),
+                                ssd=Ax("batch", "heads", None, None))
+    if btype == "slstm":
+        a = Ax("batch", "heads", None)
+        return ssm_mod.SLSTMState(h=a, c=a, n=a, m=a)
+    raise ValueError(btype)
+
+
+def cache_axes(config: ModelConfig, plan: Optional[LayerPlan] = None):
+    """Logical-axes tree matching ``init_cache`` (Ax leaves; the stacked
+    entries with a leading layer axis of None)."""
+    plan = plan or layer_plan(config)
+
+    def stack(tree):
+        return cm.tree_map(lambda a: Ax(None, *a.axes), tree,
+                           lambda x: isinstance(x, Ax))
+
+    axes = {"prefix": [block_cache_axes(b, config) for b in plan.prefix],
+            "unit": [stack(block_cache_axes(b, config)) for b in plan.unit]}
+    if plan.shared is not None:
+        axes["shared"] = stack(block_cache_axes(plan.shared, config))
+    return axes
+
+
+class _AxResolver:
+    """Deferred sharding: logical axes resolved against a concrete shape
+    (divisibility depends on it)."""
+
+    def __init__(self, ax: Ax, mesh, rules):
+        self.ax, self.mesh, self.rules = ax, mesh, rules
+
+    def resolve(self, shape) -> cm.Sharding:
+        axes = self.ax.axes
+        if len(axes) != len(shape):   # a length, stacked or not
+            axes = (None,) * len(shape)
+        return cm.Sharding(self.mesh, cm.resolve_spec(shape, axes, self.mesh,
+                                                      self.rules))
+
+
+def cache_shardings(config: ModelConfig, mesh,
+                    plan: Optional[LayerPlan] = None):
+    """_AxResolver tree for the model cache (zip it with a cache by
+    :func:`resolve_cache_shardings`)."""
+    rules = cm.make_rules(config, mesh)
+    return cm.tree_map(lambda a: _AxResolver(a, mesh, rules),
+                       cache_axes(config, plan), lambda x: isinstance(x, Ax))
+
+
+def resolve_cache_shardings(resolvers, cache):
+    """Zip an _AxResolver tree with a cache (tensors, ``meta`` tensors or
+    anything with a ``shape``; a Python-int ``length`` has shape ())."""
+    by_path = dict(cm.tree_leaves_with_path(
+        resolvers, lambda x: isinstance(x, _AxResolver)))
+    return cm.tree_map_with_path(
+        lambda path, leaf: by_path[path].resolve(tuple(getattr(leaf, "shape",
+                                                               ()))),
+        cache, _is_cache_leaf)
+
+
 def _cache_leaves(cache) -> Dict[str, Any]:
     return dict(cm.tree_leaves_with_path(cache, _is_cache_leaf))
 
@@ -368,9 +641,22 @@ def _consume(given, out):
 
 def init_cache(config: ModelConfig, batch: int, max_len: int,
                plan: Optional[LayerPlan] = None, device=None,
-               src_len: int = 0):
-    """Full-model cache pytree matching the layer plan (zeros, length 0)."""
+               src_len: int = 0, mesh=None):
+    """Full-model cache pytree matching the layer plan (zeros, length 0);
+    on a mesh, each tensor the rank's block as :func:`cache_shardings`
+    resolves it."""
     plan = plan or layer_plan(config)
+    if mesh is not None:
+        check_capacity(cm.Placement(mesh, config), config, batch, max_len)
+        whole = init_cache(config, batch, max_len, plan, "meta", src_len)
+        shardings = resolve_cache_shardings(
+            cache_shardings(config, mesh, plan), whole)
+        by_path = dict(cm.tree_leaves_with_path(
+            shardings, lambda x: isinstance(x, cm.Sharding)))
+        return cm.tree_map_with_path(
+            lambda path, t: torch.zeros(by_path[path].shard_shape(t.shape),
+                                        dtype=t.dtype, device=device)
+            if isinstance(t, torch.Tensor) else t, whole, _is_cache_leaf)
     n = plan.n_repeat
 
     def block(btype: str, src: int = 0):
@@ -446,15 +732,20 @@ def backbone_apply(params, x: torch.Tensor, ctx: BlockCtx, cache=None,
     place (see the module's docstring), returning it with the new
     lengths.
     """
+    ctx = placed(ctx)
     config = ctx.config
     plan = plan or layer_plan(config)
     decode = ctx.mode == "decode"
     use_cache = ctx.mode != "train"
     new_cache: Dict[str, Any] = {"prefix": [], "unit": None}
     aux_total = 0.0
+    specs = ctx.place.memo(("block_specs", plan), lambda: {
+        b: BLOCKS[b][0](config)
+        for b in set(plan.prefix + plan.unit + (plan.shared,)) - {None}})
 
     def run(btype, block_params, x, c_in):
-        x, c_out, aux = BLOCKS[btype][1](block_params, x, ctx, c_in)
+        x, c_out, aux = BLOCKS[btype][1](block_params, x, ctx, c_in,
+                                         specs[btype])
         if decode:
             c_out = _consume(c_in, c_out)
         return x, c_out, aux
@@ -481,7 +772,15 @@ def backbone_apply(params, x: torch.Tensor, ctx: BlockCtx, cache=None,
         if plan.shared is not None:
             c_in = _layer_view(shared_in, i) if decode else None
             x, shared, _ = run(plan.shared, params["shared"], x, c_in)
-        return x, aux_sum, outs, shared
+        return _anchor(x), aux_sum, outs, shared
+
+    def _anchor(x):
+        # the reference's residual-stream constraint between repetitions
+        # (not in decode); the blocks keep ctx.res, so it moves nothing
+        if decode:
+            return x
+        return cm.constrain(x, ctx.place.mesh, config, "batch", "seq",
+                            "embed", layout=ctx.res)
 
     if ctx.mode == "train" and torch.is_grad_enabled():
         body = remat_unit(lambda i, x, a: repetition(i, x, a)[:2],
@@ -505,5 +804,11 @@ def backbone_apply(params, x: torch.Tensor, ctx: BlockCtx, cache=None,
         new_cache["unit"] = [_stack_caches(outs) for outs in unit_out]
         if plan.shared is not None:
             new_cache["shared"] = _stack_caches(shared_out)
-    x = cm.apply_norm(x, params["final_norm"], config)
+    place, act = ctx.place, ctx.res[0]
+    norm = place.memo("final_norm", lambda: cm.norm_params(config,
+                                                           config.d_model))
+    h = cm.apply_norm(place.enter(x, ctx.res),
+                      place.weights(params["final_norm"], norm, act), config)
+    x = place.exit(h, ctx.res)
     return x, (new_cache if use_cache else None), aux_total
+

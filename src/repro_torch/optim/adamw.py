@@ -11,6 +11,12 @@ every parameter in its last bits), so a step reads nothing back to the
 host.  The update runs leaf by leaf in float32 and is cast back to the
 parameter's and the moments' types; :func:`apply_updates` returns new
 tensors and leaves its inputs as they were.
+
+On a mesh the trees hold each rank's blocks and ``shardings`` (the
+model's ``shardings_for`` tree) says how: :func:`global_norm` sums a
+leaf's local squares over the axes that shard that leaf only, so a
+replicated leaf counts once and every rank clips by the same scale; the
+update itself is elementwise on the blocks.
 """
 from __future__ import annotations
 
@@ -71,19 +77,39 @@ def init_opt_state(params, config: OptConfig) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt of the float32 sum of squares, leaf by leaf in the tree's
-    order."""
+    order.  With ``shardings`` the leaves are summed in that order within
+    each set of axes that shards them, each set's local sum reduced over
+    the ranks of its axes in one all-reduce (a replicated leaf counts
+    once), and the sets added in the order they first occur; on one rank
+    that is the mesh-less sum."""
+    from repro_torch.runtime import mesh as rt
+    sh = {} if shardings is None else dict(cm.tree_leaves_with_path(
+        shardings, lambda x: isinstance(x, cm.Sharding)))
+    sums: Dict[tuple, Any] = {}
+    mesh = None
+    for path, x in cm.tree_leaves_with_path(tree, _is_leaf):
+        axes = ()
+        if path in sh:
+            mesh = sh[path].mesh
+            held = {a for dim in sh[path].layout(x.dim()) for a in dim}
+            axes = tuple(a for a in mesh.axis_names if a in held)
+        square = torch.sum(torch.square(x.to(torch.float32)))
+        sums[axes] = sums[axes] + square if axes in sums else square
     total = 0
-    for _, x in cm.tree_leaves_with_path(tree, _is_leaf):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+    for axes, square in sums.items():
+        total = total + (rt.all_reduce(square, mesh, axes) if axes
+                         else square)
     return torch.sqrt(total)
 
 
-def apply_updates(params, grads, opt_state, config: OptConfig):
-    """One AdamW step. Returns (params, opt_state, metrics), all new."""
+def apply_updates(params, grads, opt_state, config: OptConfig,
+                  shardings=None):
+    """One AdamW step. Returns (params, opt_state, metrics), all new.
+    ``shardings``: the parameters' on a mesh (for the norm)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp(config.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = learning_rate(step, config)

@@ -36,6 +36,21 @@ group once per process group world and reuses it
 group itself.  ``torch.distributed.device_mesh.DeviceMesh`` is not used:
 it covers neither a product of axes without private API nor a mesh over
 part of the world.
+
+:class:`AbstractMesh` is ``jax.sharding.AbstractMesh``'s counterpart:
+axis names and sizes, no ranks and no process group, so the production
+meshes (16 x 16, 2 x 16 x 16) resolve their placements on one host.
+
+The collectives the LM needs run over :meth:`Mesh.group`:
+:func:`all_reduce`, :func:`all_gather` along one dim and
+:func:`reduce_scatter` along one dim, each returning a new tensor and
+counted (calls and input bytes: :func:`collective_stats`).  They
+take the process group's backend as they find it.  Under ``nccl`` they
+are NCCL's own (``reduce_scatter_tensor``).  Under ``gloo`` a tensor on
+the card is staged through the host (gloo's collectives are host
+collectives), and a reduce-scatter is composed as an all-reduce followed
+by taking the rank's block: gloo has no ``reduce_scatter_tensor``.  The
+choice is made by the backend's name, before any call.
 """
 from __future__ import annotations
 
@@ -88,6 +103,28 @@ def mesh_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "mesh's ranks on the CPU")
     return torch.device("cuda", local_rank() % torch.cuda.device_count())
+
+
+class AbstractMesh:
+    """Axis names and sizes with no ranks behind them: what
+    ``resolve_spec``, ``shardings_for`` and ``cache_shardings`` read of a
+    mesh (``shape``, ``axis_names``).  ``AbstractMesh((16, 16), ("data",
+    "model"))``."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        shape, names = tuple(int(n) for n in shape), tuple(axis_names)
+        if len(shape) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"{len(names)} distinct axis names {names} "
+                             f"for a mesh of shape {shape}")
+        self.axis_names = names
+        self.shape = dict(zip(names, shape))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({tuple(self.shape.values())}, {self.axis_names})"
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values())))
 
 
 class Mesh:
@@ -190,3 +227,118 @@ class Mesh:
         """The process group of the collectives over ``axes``
         (:func:`group_of`)."""
         return group_of(self.group_ranks(axes))
+
+
+# ---------------------------------------------------------------------------
+# Collectives over a group of axes
+# ---------------------------------------------------------------------------
+
+# calls and bytes (of the input, on the calling rank) of each collective
+# below since the last reset_collective_stats(): what a step moves
+COLLECTIVES: Dict[str, list] = {}
+
+
+def reset_collective_stats() -> None:
+    COLLECTIVES.clear()
+
+
+def collective_stats() -> Dict[str, dict]:
+    """``{name: {"calls", "bytes"}}`` since the last reset."""
+    return {k: {"calls": v[0], "bytes": v[1]} for k, v in
+            sorted(COLLECTIVES.items())}
+
+
+def _count(name: str, x: torch.Tensor) -> None:
+    entry = COLLECTIVES.setdefault(name, [0, 0])
+    entry[0] += 1
+    entry[1] += x.numel() * x.element_size()
+
+
+def _is_gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+def _run(fn, x: torch.Tensor, group):
+    """``fn(t)`` on ``x``'s host copy where the group is gloo and ``x``
+    lies on the card (the result goes back to ``x``'s device), else on
+    ``x`` itself."""
+    if _is_gloo(group) and x.device.type != "cpu":
+        return fn(x.cpu()).to(x.device)
+    return fn(x)
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced (``op``) over the ranks of ``axes``, a new tensor."""
+    if mesh.n_shards(axes) == 1:
+        return x.clone()
+    group = mesh.group(axes)
+    _count("all_reduce", x)
+
+    def reduce(t):
+        t = t.contiguous().clone()
+        dist.all_reduce(t, op=op, group=group)
+        return t
+
+    return _run(reduce, x, group)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
+               dim: int) -> torch.Tensor:
+    """The blocks of ``axes``' ranks joined along ``dim`` in shard order
+    (the first axis major)."""
+    n = mesh.n_shards(axes)
+    if n == 1:
+        return x.clone()
+    group = mesh.group(axes)
+    _count("all_gather", x)
+    ranks = mesh.group_ranks(axes)
+    # a group numbers its members in ascending global rank
+    order = [sorted(ranks).index(r) for r in ranks]
+
+    def gather(t):
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat([parts[i] for i in order], dim=dim)
+
+    return _run(gather, x, group)
+
+
+def block_of(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
+             dim: int) -> torch.Tensor:
+    """The calling rank's block of ``x`` along ``dim`` over ``axes``
+    (a view)."""
+    n = mesh.n_shards(axes)
+    if n == 1:
+        return x
+    size = x.shape[dim]
+    if size % n:
+        raise ValueError(f"dim {dim} of size {size} does not split into "
+                         f"{n} blocks over {tuple(axes)}")
+    k = size // n
+    return x.narrow(dim, mesh.shard_index(axes) * k, k)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
+                   dim: int) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axes``, and the calling rank's
+    block of the sum along ``dim``.  ``reduce_scatter_tensor`` under
+    NCCL; an all-reduce then the block under gloo."""
+    n = mesh.n_shards(axes)
+    if n == 1:
+        return x.clone()
+    group = mesh.group(axes)
+    ranks = mesh.group_ranks(axes)
+    if _is_gloo(group) or list(ranks) != sorted(ranks):
+        # gloo has no reduce_scatter_tensor; NCCL's hands out blocks in
+        # ascending global rank, which is shard order only for axes
+        # named in the mesh's order
+        return block_of(all_reduce(x, mesh, axes), mesh, axes,
+                        dim).contiguous()
+    _count("reduce_scatter", x)
+    moved = x.movedim(dim, 0).contiguous()
+    out = torch.empty((moved.shape[0] // n,) + moved.shape[1:],
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, moved, group=group)
+    return out.movedim(0, dim).contiguous()

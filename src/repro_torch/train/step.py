@@ -18,6 +18,15 @@ template); only its caller can drop the old state, as the reference's
 ``donate_argnums=(0,)`` does in ``launch.train.train_loop``.  State
 leaves and batch entries given as numpy arrays (a restored checkpoint,
 the data pipeline's arrays) are taken onto the model's device.
+
+On a mesh (a model built with one) the state holds the rank's blocks
+and every rank is given the whole batch.  The gradient reductions of
+``repro_torch.models.common``'s placement rule run inside the backward
+(each weight's use sums its gradient over the axes it must), so
+``torch.autograd.grad`` returns each rank its block of the global
+gradient; the clip's norm sums each leaf over its own shard axes
+(``optim.adamw.global_norm``).  The embedding's gradient is still summed
+in float32.
 """
 from __future__ import annotations
 
@@ -33,6 +42,16 @@ from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt_state
 class TrainState(NamedTuple):
     params: Any
     opt: Dict[str, Any]
+
+
+def train_state_shardings(model) -> TrainState:
+    """The shardings of ``model``'s train state on its mesh (None without
+    one): the parameters' for the parameters and both moments, none for
+    the step."""
+    sh = getattr(model, "shardings", None)
+    if sh is None:
+        return None
+    return TrainState(params=sh, opt={"m": sh, "v": sh, "step": None})
 
 
 def init_train_state(model, generator: torch.Generator,
@@ -110,7 +129,8 @@ def make_train_step(model, opt_config: OptConfig, grad_accum: int = 1):
             metrics = {}
 
         new_params, new_opt, opt_metrics = apply_updates(
-            state.params, grads, state.opt, opt_config)
+            state.params, grads, state.opt, opt_config,
+            getattr(model, "shardings", None))
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

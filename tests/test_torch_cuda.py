@@ -1882,3 +1882,47 @@ def test_remat_on_the_card_is_bit_for_bit(cuda):
                 cm.tree_leaves_with_path(tuple(outs[remat][0]),
                                          torch.is_tensor)):
             assert torch.equal(a, b), (remat, path)
+
+
+# ---------------------------------------------------------------------------
+# the LM on a 1-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-moe-16b",
+                                  "seamless-m4t-large-v2"])
+def test_lm_on_a_one_rank_nccl_mesh_equals_no_mesh(nccl_mesh, arch):
+    """A smoke config on a 1-rank NCCL ``(data, model)`` mesh gives the
+    mesh-less card's loss and its prefill and decode logits, bit for bit
+    (a block of one rank is the whole leaf, and no collective runs)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+
+    mesh = make_host_mesh(1)
+    config = get_arch(arch).smoke_config()
+    plain = build_model(config, device=mesh.device)
+    params = plain.init(torch.Generator(device=mesh.device).manual_seed(0))
+    model = build_model(config, mesh)
+    assert model.device == mesh.device
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, config.vocab_size, (2, 16)),
+                             device=mesh.device)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    if config.frontend == "audio_stub":
+        batch["frame_embeds"] = torch.randn(
+            (2, 6, config.d_model), generator=torch.Generator(
+                device=mesh.device).manual_seed(1), device=mesh.device)
+    with torch.no_grad():
+        assert torch.equal(model.loss(params, batch)[0],
+                           plain.loss(params, batch)[0])
+        prompt = {k: v[:, :8] if k == "tokens" else v
+                  for k, v in batch.items() if k != "labels"}
+        got, cache = model.prefill(params, prompt, max_len=16)
+        want, want_cache = plain.prefill(params, prompt, max_len=16)
+        assert torch.equal(got, want)
+        for i in range(8, 12):
+            got, cache = model.decode_step(params, tokens[:, i:i + 1], cache)
+            want, want_cache = plain.decode_step(params, tokens[:, i:i + 1],
+                                                 want_cache)
+            assert torch.equal(got, want)

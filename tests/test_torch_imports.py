@@ -55,7 +55,7 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                    "models.model", "configs.base",
                    "configs.mistral_nemo_12b", "launch.serve",
                    "optim.adamw", "train.step", "launch.train",
-                   "roofline.analysis"):
+                   "launch.mesh", "roofline.analysis"):
         assert f"repro_torch.{module}" in modules
     code = (
         "import importlib, sys\n"

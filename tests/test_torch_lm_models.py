@@ -38,6 +38,7 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import KVCache  # noqa: E402
 from repro_torch.models.model import LM, Seq2Seq, build_model  # noqa: E402
 from repro_torch.models.ssm import SLSTMState, SSMState  # noqa: E402
+from repro_torch.runtime import Mesh  # noqa: E402
 
 DECODERS = ("olmo-1b", "stablelm-1.6b", "mistral-nemo-12b", "yi-6b",
             "llava-next-34b")
@@ -243,8 +244,12 @@ def test_no_card_and_no_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(get_arch("olmo-1b").smoke_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        LM(get_arch("olmo-1b").smoke_config(), mesh=object(), device=CPU)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LM(get_arch("olmo-1b").smoke_config(),
+           mesh=Mesh(np.array([[0]]), ("data", "model")))
+    mesh = Mesh(np.array([[0]]), ("data", "model"), device=CPU)
+    assert LM(get_arch("olmo-1b").smoke_config(), mesh=mesh).device == \
+        torch.device(CPU)
 
 
 def test_a_decode_step_consumes_its_cache():

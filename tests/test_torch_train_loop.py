@@ -31,6 +31,7 @@ from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                     restore_checkpoint, save_checkpoint)
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.train import build_batch_fn, train_loop  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
@@ -224,19 +225,23 @@ def test_port_continues_the_references_train_loop(tmp_path):
     assert int(got["state"].opt["step"]) == 6
 
 
-def test_no_card_and_no_device_raises(monkeypatch):
+def test_no_card_and_no_device_raises(monkeypatch, capsys):
     """No CPU fallback: without a card and a named device the loop
-    raises; a mesh and ``--tp`` above 1 point to Queue A (e)."""
+    raises, and so does a host mesh; ``--tp`` above 1 on one rank (no
+    ``torchrun``) trains without a mesh, as the reference does on one
+    device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_loop(olmo(), steps=1, batch=2, seq=8, log_every=0)
-    with pytest.raises(NotImplementedError, match="Queue A item \\(e\\)"):
-        train_loop(olmo(), steps=1, batch=2, seq=8, mesh=object(),
-                   device=CPU)
-    monkeypatch.setattr("sys.argv", ["train", "--arch", "olmo-1b", "--tp",
-                                     "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue A item \\(e\\)"):
-        port_train.main()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_host_mesh(1, devices=[0])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr("sys.argv", ["train", "--arch", "olmo-1b", "--smoke",
+                                     "--tp", "2", "--steps", "1", "--batch",
+                                     "2", "--seq", "8", "--device", "cpu"])
+    port_train.main()
+    out = capsys.readouterr().out
+    assert json.loads(out[out.index("{"):])["steps_run"] == 1
 
 
 def test_main_runs_a_smoke_config_on_the_cpu(capsys):

@@ -193,11 +193,11 @@ def moe_keeps(model, params, batch):
     seen = []
     apply = mlp.moe_apply
 
-    def recording(p, h, config):
+    def recording(p, h, config, *placed):
         keep = mlp.route(p, h.reshape(-1, config.d_model), config)[4]
         seen.append((p["w_router"].detach().numpy(),
                      h.detach().float().numpy(), keep.numpy()))
-        return apply(p, h, config)
+        return apply(p, h, config, *placed)
 
     mlp.moe_apply = recording
     try:
