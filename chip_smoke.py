@@ -143,6 +143,17 @@ against scipy's connected components:
   run that never stopped, bit for bit; and one
   step of every arch's smoke config in float32 on the card against CPU
   tensors.  It launches no kernel of the port;
+* inside it, on its olmo-1b state, the roofline path (``roofline_path``):
+  the train step priced op by op on ``meta`` tensors
+  (``roofline.op_cost``, as ``launch.dryrun`` prices a rank) and run once
+  on the card under the same counting mode, which must see the same aten
+  ops, FLOPs and bytes; the same for one mistral-nemo-12b decode step
+  against 4096 positions; the three roofline terms (``roofline.HW_H100``)
+  beside each step's measured ms, the traced peak against
+  ``max_memory_allocated``; after the kernels line, the dry-run's
+  ``contour-cc`` round on a 1-rank mesh at rmat(22,16)'s n and m, which
+  must equal K1 + K7 + K6's entries of the kernels line (one
+  ``{"roofline": ...}`` line).  It launches no kernel of the port;
 * then the LM on a mesh (``lm_mesh``): on a 1-rank NCCL mesh in this
   process (FileStore rendezvous), one olmo-1b train step at full width
   and depth from the state of the mesh-less step (loss, grad norm and
@@ -238,10 +249,15 @@ from repro_torch.models import mlp as lm_mlp  # noqa: E402
 from repro_torch.models import transformer as lm_tfm  # noqa: E402
 from repro_torch.models.model import build_model, lm_param_specs  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
-from repro_torch.roofline import count_params, model_flops  # noqa: E402
+from repro_torch.optim.adamw import init_opt_state  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.roofline import (HW_H100, analyze_program,  # noqa: E402
+                                  count_params, model_flops)
+from repro_torch.roofline.op_cost import price  # noqa: E402
 from repro_torch.train import (init_train_state,  # noqa: E402
                                make_train_step)
 from repro_torch.runtime import mesh as rt_mesh  # noqa: E402
+from repro_torch.runtime.mesh import AbstractMesh  # noqa: E402
 from repro_torch.runtime import (FaultInjector, Mesh,  # noqa: E402
                                  ShardLossFault, SimulatedFault,
                                  run_with_recovery)
@@ -272,14 +288,15 @@ CHUNKS = (1, 2, 3, 4, 6, 8, 16)
 # the frontier schedule the repo's drivers run (benchmarks/connectivity.py,
 # examples/quickstart.py)
 FRONTIER = {"sampling": 2, "compact_every": 2}
-# H100 SXM published peaks (NVIDIA data sheet) behind each bound_ms: HBM
-# bandwidth, and the float32 rate outside the tensor cores, the table's
-# closest entry for the kernels' int32 min/compare work
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+# H100 SXM published peaks (NVIDIA data sheet, roofline.analysis.HW_H100)
+# behind each bound_ms: HBM bandwidth, and the float32 rate outside the
+# tensor cores, the table's closest entry for the kernels' int32
+# min/compare work
+HBM_BYTES_PER_S = HW_H100["hbm_bw"]
+ALU_OPS_PER_S = HW_H100["alu_ops"]
 # dense bf16 and fp16 tensor-core rate: the least time of attention's
 # products
-BF16_TENSOR_OPS_PER_S = 989e12
+BF16_TENSOR_OPS_PER_S = HW_H100["peak_flops"]
 # mistral-nemo-12b (src/repro/configs/mistral_nemo_12b.py): d_model, query
 # heads, KV heads, head dim
 NEMO = {"d": 5120, "H": 32, "Hkv": 8, "hd": 128}
@@ -480,6 +497,20 @@ LM_MESH_TOL = {"loss_rtol": 1e-4, "grad_norm_rtol": 1e-4,
                "param_atol": 1e-4, "param_rtol": 1e-4}
 LM_MESH_STEP_RTOL = 1e-2
 LM_MESH_BUDGET_S = 120.0
+# the roofline path (roofline_path, inside train_path on its olmo-1b
+# state): the train step priced op by op on meta tensors
+# (roofline.op_cost, as launch.dryrun prices a rank) and run once on the
+# card under the same counting mode, which must see the same ops, FLOPs
+# and bytes; the same for one decode step of LM_ARCH against
+# LM_PROMPTS[0] positions (timed over ROOFLINE_DECODE_REPS calls); each
+# traced peak against the card's max_memory_allocated within
+# ROOFLINE_PEAK_RTOL (the bytes resident beside the step's arguments
+# added); then the contour-cc cell on a 1-rank mesh at the main path's
+# rmat n and m, whose round must equal K1 + K7 + K6's entries of the
+# kernels line
+ROOFLINE_PEAK_RTOL = 0.10
+ROOFLINE_DECODE_REPS = 10
+ROOFLINE_BUDGET_S = 60.0
 # kernel against plain version in float32, (atol, rtol, rms_rel) by working
 # type: every element within |a - b| <= atol + rtol * |b|, and the whole
 # output within rms(a - b) <= rms_rel * rms(b).  Both versions compute in
@@ -991,7 +1022,7 @@ def phase_kernels(full: dict, star, small: dict) -> dict:
         "shape": {"n": n, "m": m},
         # read L, src, dst once, write L_out once; per edge one min for z
         # and four compares against the gathered labels
-        **bound(4 * n + 8 * m + 4 * n, 5 * m),
+        **bound(*blocked.fused_relax_work(n, m)),
     }
     scatter = {
         "name": "scatter_min", "route": "cuda", "source": SOURCE,
@@ -1573,14 +1604,14 @@ def phase_converged(full: dict) -> dict:
                     "plain_ms": per[-1]["plain_ms"],
                     # read src, dst (8m) and the labels once (4n); per edge
                     # three compares
-                    **bound(8 * m + 4 * n, 3 * m)},
+                    **bound(*cv.converged_early_work(n, m))},
                 "labels_unchanged": {
                     "ms": per[-1]["labels_unchanged_ms"],
                     "plain_ms": per[-1]["labels_unchanged_plain_ms"],
                     "library_ms": time_ms(
                         lambda: torch.equal(fixed, fixed_copy)),
                     # read both arrays once; one compare an element
-                    **bound(8 * n, n)},
+                    **bound(*cv.labels_unchanged_work(n))},
             }
             del fixed_copy
     if mismatches:
@@ -1638,7 +1669,7 @@ def phase_jump(full: dict) -> dict:
                      "plain_ms": per[0]["plain_ms"],
                      # read L once and write the output once (the gather
                      # L[L] reads the same input again); one min an element
-                     **bound(8 * n, n)}
+                     **bound(*cv.pointer_jump_work(n))}
     if err:
         raise AssertionError(f"pointer_jump differs from its plain "
                              f"version: {err}")
@@ -4556,6 +4587,8 @@ def phase_train(card: str) -> list:
     bounds = train_bounds(model, n_params)
     non_embedding = count_params(model)
     mean_ms = sum(step_ms) / len(step_ms)
+    roofline = phase_roofline(card, model, state, batch, step, mean_ms,
+                              bounds)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     run = {"phase": "train_path", "nvidia_smi": card, "arch": TRAIN_ARCH,
            "n_layers": config.n_layers, "d_model": config.d_model,
@@ -4569,7 +4602,8 @@ def phase_train(card: str) -> list:
            "tokens_per_s": tokens / (mean_ms / 1e3),
            **bounds, "step_over_bound": mean_ms / bounds["bound_ms"],
            "losses": losses, "grad_norms": norms, "profiled": profiled,
-           "op_split": split, "peak_bytes": peak, "launches": launches}
+           "op_split": split, "peak_bytes": peak, "launches": launches,
+           "roofline_path": roofline}
     emit({**run, "phase": "train_path_steps"})
     if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
         raise AssertionError(f"train path: losses {losses}, grad norms "
@@ -4591,6 +4625,150 @@ def phase_train(card: str) -> list:
                 "within_budget": seconds <= TRAIN_BUDGET_S})
     emit(run)
     return [run]
+
+
+def meta_twin(tree):
+    """``tree`` with each tensor a ``meta`` tensor of its shape and type."""
+    return lm_common.tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree,
+        torch.is_tensor)
+
+
+def priced_on_both(what: str, card_fn, card_args, meta_fn,
+                   meta_args) -> tuple:
+    """One program priced by ``roofline.op_cost`` on ``meta`` tensors
+    (after one untraced call, which fills the model's memos as the card's
+    earlier calls did) and run once on the card under the same counting
+    mode: the ops, FLOPs and bytes must be equal; the traced peak (its
+    arguments included) against ``max_memory_allocated`` over the card's
+    call, with the bytes resident beside the arguments added.  Returns
+    (the row, the card's Cost, its Memory)."""
+    meta_fn(*meta_args)
+    _, meta_cost, meta_memory = price(meta_fn, *meta_args)
+    sync()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, cost, memory = price(card_fn, *card_args)
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    got = {k: getattr(cost, k) for k in ("ops", "flops", "bytes")}
+    want = {k: getattr(meta_cost, k) for k in ("ops", "flops", "bytes")}
+    if got != want:
+        raise AssertionError(f"{what}: the card's program {got} is not the "
+                             f"meta program {want}")
+    expected = resident - memory.argument_bytes + memory.peak_bytes
+    gap = peak / expected - 1
+    row = {**got, "traced_peak_bytes": memory.peak_bytes,
+           "traced_peak_bytes_on_meta": meta_memory.peak_bytes,
+           "argument_bytes": memory.argument_bytes,
+           "resident_bytes_before": resident,
+           "max_memory_allocated": peak,
+           "expected_max_memory_allocated": expected,
+           "peak_gap": gap}
+    if abs(gap) > ROOFLINE_PEAK_RTOL:
+        raise AssertionError(f"{what}: max_memory_allocated {peak} is "
+                             f"{gap:+.1%} from the traced peak's {expected}")
+    return row, cost, memory
+
+
+def terms(cost, memory, kind: str, measured_ms: float, **known) -> dict:
+    """The three roofline terms of one card's program, in ms, beside its
+    measured device ms."""
+    rep = analyze_program(cost, memory, arch="", shape="", mesh_name="card",
+                          kind=kind, n_devices=1)
+    return {"compute_ms": rep.t_compute * 1e3,
+            "memory_ms": rep.t_memory * 1e3,
+            "collective_ms": rep.t_collective * 1e3,
+            "dominant": rep.dominant, "measured_ms": measured_ms, **known}
+
+
+def phase_roofline(card: str, model, state, batch, step,
+                   step_ms: float, bounds: dict) -> dict:
+    """``roofline_path`` on ``train_path``'s model and state: (a) the
+    step's and a ``LM_ARCH`` decode step's programs priced on ``meta``
+    equal the card's (:func:`priced_on_both`), their three terms beside
+    the measured ms; (b) the step's compute term beside the prediction
+    ``bound_ms_with_left_out`` (less AdamW's bytes), its traced peak
+    against ``max_memory_allocated``.  The contour cell's check comes
+    after the kernels line (:func:`roofline_contour`)."""
+    t_phase = time.perf_counter()
+    config = model.config
+    meta_model = build_model(config, device="meta")
+    meta_params = meta_model.params()
+    meta_state = type(state)(meta_params,
+                             init_opt_state(meta_params, TRAIN_OPT))
+    train_row, cost, memory = priced_on_both(
+        "train step", step, (state, batch),
+        make_train_step(meta_model, TRAIN_OPT), (meta_state,
+                                                 meta_twin(batch)))
+    train_row.update(terms(
+        cost, memory, "train", step_ms,
+        predicted_compute_ms=bounds["bound_ms_with_left_out"]
+        - bounds["adamw_bound_ms"]))
+    # one decode step of the LM path's model against LM_PROMPTS[0]
+    # positions (a cache of LM_MAX_LEN, its length set; the values are
+    # the zeros init_cache makes)
+    lm_config = get_arch(LM_ARCH).config
+    lm = build_model(lm_config, device=DEVICE)
+    params = lm.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+    meta_lm = build_model(lm_config, device="meta")
+
+    def at_prompt(cache):
+        return lm_common.tree_map(
+            lambda x: LM_PROMPTS[0] if type(x) is int else x, cache,
+            lambda x: isinstance(x, (torch.Tensor, int)))
+
+    cache = at_prompt(lm.init_cache(1, LM_MAX_LEN))
+    token = torch.zeros((1, 1), dtype=torch.int64, device=DEVICE)
+    with torch.inference_mode():
+        _, decode_ms, _ = lm_events_ms(
+            lambda: lm.decode_step(params, token, cache),
+            ROOFLINE_DECODE_REPS)
+        decode_row, cost, memory = priced_on_both(
+            "decode step", lm.decode_step, (params, token, cache),
+            meta_lm.decode_step, (meta_lm.params(), meta_twin(token),
+                                  at_prompt(meta_lm.init_cache(
+                                      1, LM_MAX_LEN))))
+    decode_row.update(terms(cost, memory, "decode", decode_ms))
+    del lm, params, cache
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    out = {"phase": "roofline_path", "nvidia_smi": card,
+           "train": {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH,
+                     "seq": TRAIN_SEQ, "remat": config.remat, **train_row},
+           "decode": {"arch": LM_ARCH, "cache_len": LM_PROMPTS[0],
+                      "capacity": LM_MAX_LEN, **decode_row},
+           "seconds": seconds, "budget_s": ROOFLINE_BUDGET_S,
+           "within_budget": seconds <= ROOFLINE_BUDGET_S}
+    emit(out)
+    return out
+
+
+def roofline_contour(kernels: dict) -> dict:
+    """(c) The ``contour-cc`` cell priced on a 1-rank mesh at the main
+    path's rmat n and m (``launch.dryrun.trace_contour``, one round):
+    its bytes and operations must equal the sum of K1's, K7's and K6's
+    entries of the kernels line; its memory term beside the three
+    kernels' measured ms."""
+    entries = [kernels[k] for k in ("fused_relax", "pointer_jump",
+                                    "converged_early")]
+    n, m = entries[0]["shape"]["n"], entries[0]["shape"]["m"]
+    if entries[2]["shape"]["n"] != n or entries[2]["shape"]["m"] != m \
+            or entries[1]["shape"]["n"] != n:
+        raise AssertionError(f"the kernels line's K1/K7/K6 shapes differ: "
+                             f"{[e['shape'] for e in entries]}")
+    rank = AbstractMesh((1, 1), ("data", "model")).at(0)
+    cost, memory, work = dryrun.trace_contour(rank, n, m, rounds=1)
+    line = {"bytes": sum(e["bytes"] for e in entries),
+            "ops": sum(e["ops"] for e in entries)}
+    if (work["bytes"], work["ops"]) != (line["bytes"], line["ops"]) \
+            or cost.bytes != line["bytes"] or cost.coll_counts:
+        raise AssertionError(f"the contour round {work} is not the kernels "
+                             f"line's {line}")
+    return {"n": n, "m": m, "round": work, "kernels_line": line,
+            **terms(cost, memory, "contour",
+                    sum(e["ms"] for e in entries))}
 
 
 def timed_ms(fn) -> tuple:
@@ -5403,6 +5581,10 @@ def run_phases(args, t_all: float, graphs: HostGraphs, rmat_name: str,
         k["max_abs_diff"] = k["max_abs_err"]
         k["kernel_ms"] = k["ms"]
         line.append(k)
+    roofline = train_runs[0]["roofline_path"]
+    emit({"roofline": {"nvidia_smi": card, "train": roofline["train"],
+                       "decode": roofline["decode"],
+                       "contour": roofline_contour(kernels)}})
     print(card, flush=True)
     emit({"kernels": line, "seconds_total": time.perf_counter() - t_all})
     emit({"ok": True, "device": {"platform": "gpu",

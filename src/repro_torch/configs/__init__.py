@@ -3,9 +3,7 @@
 
 Ten architectures from the public pool (see per-module docstrings for the
 exact assignment line and citation), copied field for field with torch
-dtypes.  Every family is registered; the port builds the decoder families
-(``dense``, ``vlm``) so far, and ``build_model`` raises for the others
-(ROADMAP Queue A).
+dtypes; ``build_model`` builds every family.
 """
 from __future__ import annotations
 

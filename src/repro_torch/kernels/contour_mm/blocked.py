@@ -282,6 +282,16 @@ def fused_relax(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 fused_relax.launches = 0
 
 
+def fused_relax_work(n: int, m: int) -> Tuple[int, int]:
+    """(bytes, operations) the least a :func:`fused_relax` sweep of
+    ``m`` edges over ``n`` labels needs: L, src and dst read once and the
+    output labels written once (4n + 8m + 4n), and per edge one min for
+    z and four compares against the gathered labels (5m).  The bound of
+    ``chip_smoke.py``'s kernels line and the dry-run's ``contour-cc``
+    cell."""
+    return 4 * n + 8 * m + 4 * n, 5 * m
+
+
 def _hot_slots(slots: torch.Tensor, per_lane: int) -> int:
     """The hot slots of a kernel's steps.  ``slots`` is (items, w): item
     ``e``'s ``w`` update targets, -1 where it has none.  As the kernels map

@@ -246,6 +246,15 @@ def converged_early(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 converged_early.launches = 0
 
 
+def converged_early_work(n: int, m: int) -> Tuple[int, int]:
+    """(bytes, operations) the least :func:`converged_early` over ``m``
+    edges and ``n`` labels needs: src and dst read once and the labels
+    once (8m + 4n), three compares an edge (3m).  The bound of
+    ``chip_smoke.py``'s kernels line and the dry-run's ``contour-cc``
+    cell."""
+    return 8 * m + 4 * n, 3 * m
+
+
 # ---------------------------------------------------------------------------
 # labels_unchanged (K6's second entry point)
 # ---------------------------------------------------------------------------
@@ -279,6 +288,13 @@ def labels_unchanged(a: torch.Tensor, b: torch.Tensor, *,
 
 
 labels_unchanged.launches = 0
+
+
+def labels_unchanged_work(n: int) -> Tuple[int, int]:
+    """(bytes, operations) the least :func:`labels_unchanged` of two
+    arrays of ``n`` labels needs: both read once (8n), one compare an
+    element (n)."""
+    return 8 * n, n
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +349,14 @@ def pointer_jump(L: torch.Tensor, done=None,
 
 
 pointer_jump.launches = 0
+
+
+def pointer_jump_work(n: int) -> Tuple[int, int]:
+    """(bytes, operations) the least a :func:`pointer_jump` round of
+    ``n`` labels needs: the labels read once and the output written once
+    (8n), one min a label (n).  The bound of ``chip_smoke.py``'s kernels
+    line and the dry-run's ``contour-cc`` cell."""
+    return 8 * n, n
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
 """Launchers of the port: the LM server (``serve``), the training loop
-(``train``) and the meshes they run on (``mesh``: the abstract production
-meshes and the host mesh over ``torch.distributed``'s ranks).  The
-dry-run waits for its slice (ROADMAP Queue A item (e))."""
+(``train``), the meshes they run on (``mesh``: the abstract production
+meshes and the host mesh over ``torch.distributed``'s ranks) and the
+dry-run that prices a rank's program on the production meshes
+(``dryrun``)."""

@@ -247,8 +247,12 @@ def moe_apply(params, x: torch.Tensor, config: ModelConfig, place=None,
 
     # ---- load-balance aux loss (Switch-style), over the whole batch ------
     me = cm.reduce_from(probs.sum(dim=0), mesh, act) / nt   # mean router prob
-    counts = place.all_reduce(torch.bincount(expert_idx.reshape(-1),
-                                             minlength=E), grp)
+    # a scatter-add of ones, not bincount: the same integers, and a
+    # static shape that a meta tensor can carry
+    flat = expert_idx.reshape(-1)
+    counts = place.all_reduce(torch.zeros(
+        E, dtype=torch.int64, device=flat.device).scatter_add_(
+            0, flat, torch.ones_like(flat)), grp)
     ce = counts.float() / (nt * K)
     aux = E * torch.sum(me * ce)
     return y.reshape(b, t, d), aux

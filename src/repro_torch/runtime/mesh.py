@@ -40,6 +40,11 @@ part of the world.
 :class:`AbstractMesh` is ``jax.sharding.AbstractMesh``'s counterpart:
 axis names and sizes, no ranks and no process group, so the production
 meshes (16 x 16, 2 x 16 x 16) resolve their placements on one host.
+``AbstractMesh.at(rank)`` is one rank of it, priced rather than run
+(:class:`PricedRank`): the ``Mesh`` interface the models read, on the
+``meta`` device, whose collectives return a ``meta`` tensor of the
+result's shape and record what they would move
+(``repro_torch.launch.dryrun`` prices a rank's program on it).
 
 The collectives the LM needs run over :meth:`Mesh.group`:
 :func:`all_reduce`, :func:`all_gather` along one dim and
@@ -55,7 +60,7 @@ choice is made by the backend's name, before any call.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,6 +130,11 @@ class AbstractMesh:
     @property
     def size(self) -> int:
         return int(np.prod(list(self.shape.values())))
+
+    def at(self, rank: int) -> "PricedRank":
+        """Rank ``rank`` of this mesh (ranks numbered row-major over the
+        axes), priced rather than run."""
+        return PricedRank(self, rank)
 
 
 class Mesh:
@@ -229,6 +239,59 @@ class Mesh:
         return group_of(self.group_ranks(axes))
 
 
+class Collective(NamedTuple):
+    """One collective a :class:`PricedRank` would have run: the
+    function's name, the group's size and the bytes of its input and its
+    result on the rank."""
+    kind: str
+    n: int
+    in_bytes: int
+    out_bytes: int
+
+
+class PricedRank(Mesh):
+    """One rank of an :class:`AbstractMesh`, for pricing its program on
+    ``meta`` tensors with no process group: ``devices`` numbers the ranks
+    row-major, ``rank`` is the chosen one, ``device`` is ``meta``.  The
+    collectives below return a ``meta`` tensor of the result's shape
+    instead of running, and append a :class:`Collective` to
+    ``records``; they take a live NCCL rank's path (a reduce-scatter
+    over axes not in the mesh's order is an all-reduce and the rank's
+    block)."""
+
+    def __init__(self, mesh: AbstractMesh, rank: int):
+        shape = tuple(mesh.shape.values())
+        if not 0 <= rank < mesh.size:
+            raise ValueError(f"rank {rank} is not in {mesh!r}")
+        self.devices = np.arange(mesh.size, dtype=np.int64).reshape(shape)
+        self.axis_names = mesh.axis_names
+        self.shape = dict(mesh.shape)
+        self.device = torch.device("meta")
+        self._rank = int(rank)
+        self.records: List[Collective] = []
+
+    def __repr__(self) -> str:
+        return (f"PricedRank({tuple(self.shape.values())}, "
+                f"{self.axis_names}, rank={self._rank})")
+
+    @property
+    def rank(self) -> int:
+        return self._rank
+
+    def group(self, axes: Sequence[str]):
+        raise RuntimeError(f"{self!r} has no process group")
+
+    def record(self, kind: str, axes: Sequence[str], x: torch.Tensor,
+               shape: Sequence[int]) -> torch.Tensor:
+        """A ``meta`` tensor of ``shape`` (``x``'s type) standing for the
+        result of ``kind`` over ``axes``, recorded."""
+        out = torch.empty(tuple(shape), dtype=x.dtype, device="meta")
+        self.records.append(Collective(
+            kind, self.n_shards(axes), x.numel() * x.element_size(),
+            out.numel() * out.element_size()))
+        return out
+
+
 # ---------------------------------------------------------------------------
 # Collectives over a group of axes
 # ---------------------------------------------------------------------------
@@ -272,6 +335,8 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
     """``x`` reduced (``op``) over the ranks of ``axes``, a new tensor."""
     if mesh.n_shards(axes) == 1:
         return x.clone()
+    if isinstance(mesh, PricedRank):
+        return mesh.record("all_reduce", axes, x, x.shape)
     group = mesh.group(axes)
     _count("all_reduce", x)
 
@@ -290,6 +355,10 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
     n = mesh.n_shards(axes)
     if n == 1:
         return x.clone()
+    if isinstance(mesh, PricedRank):
+        shape = list(x.shape)
+        shape[dim] *= n
+        return mesh.record("all_gather", axes, x, shape)
     group = mesh.group(axes)
     _count("all_gather", x)
     ranks = mesh.group_ranks(axes)
@@ -328,14 +397,19 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
     n = mesh.n_shards(axes)
     if n == 1:
         return x.clone()
-    group = mesh.group(axes)
+    priced = isinstance(mesh, PricedRank)
+    group = None if priced else mesh.group(axes)
     ranks = mesh.group_ranks(axes)
-    if _is_gloo(group) or list(ranks) != sorted(ranks):
+    if list(ranks) != sorted(ranks) or not priced and _is_gloo(group):
         # gloo has no reduce_scatter_tensor; NCCL's hands out blocks in
         # ascending global rank, which is shard order only for axes
         # named in the mesh's order
         return block_of(all_reduce(x, mesh, axes), mesh, axes,
                         dim).contiguous()
+    if priced:
+        shape = list(x.shape)
+        shape[dim] //= n
+        return mesh.record("reduce_scatter", axes, x, shape)
     _count("reduce_scatter", x)
     moved = x.movedim(dim, 0).contiguous()
     out = torch.empty((moved.shape[0] // n,) + moved.shape[1:],

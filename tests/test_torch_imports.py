@@ -55,7 +55,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                    "models.model", "configs.base",
                    "configs.mistral_nemo_12b", "launch.serve",
                    "optim.adamw", "train.step", "launch.train",
-                   "launch.mesh", "roofline.analysis"):
+                   "launch.mesh", "roofline.analysis",
+                   "roofline.op_cost", "launch.dryrun"):
         assert f"repro_torch.{module}" in modules
     code = (
         "import importlib, sys\n"

@@ -46,9 +46,12 @@ from repro_torch.models import mlp  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
-from repro_torch.runtime.mesh import Mesh  # noqa: E402
+from repro_torch.optim.adamw import init_opt_state  # noqa: E402
+from repro_torch.runtime import mesh as rt  # noqa: E402
+from repro_torch.runtime.mesh import AbstractMesh, Mesh  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
-from repro_torch.train.step import train_state_shardings  # noqa: E402
+from repro_torch.train.step import (TrainState,  # noqa: E402
+                                    train_state_shardings)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
@@ -184,8 +187,12 @@ def _record_keeps(model, seen: list, n_tokens: int):
         out = dispatch(xg, probs_g, config, C)
         groups = mlp.moe_groups(n_tokens, config)
         grp = model.place.layout((groups, xg.shape[1]), "moe_group", None)[0]
+        # the recording's own gather is not the step's collective
+        counted = {k: list(v) for k, v in rt.COLLECTIVES.items()}
         keep = cm.relayout(out[3].to(torch.uint8), model.mesh, (grp, ()),
                            ((), ()))
+        rt.COLLECTIVES.clear()
+        rt.COLLECTIVES.update(counted)
         seen.append(keep.numpy().astype(bool))
         return out
 
@@ -215,11 +222,15 @@ def run_case(case, arrays: dict, results: dict) -> None:
     if config.n_experts:
         dispatch, recording = _record_keeps(model, seen, b * T)
         mlp.dispatch = recording
+    rt.reset_collective_stats()
     try:
         new, metrics = make_train_step(model, OptConfig(**OPT))(state, batch)
     finally:
         if config.n_experts:
             mlp.dispatch = dispatch
+    for kind, stats in rt.collective_stats().items():
+        for key, value in stats.items():
+            results[f"{cid}|collectives|{kind}|{key}"] = value
     for i, keep in enumerate(seen):
         results[f"{cid}|keep{i}"] = keep
     results[f"{cid}|loss"] = float(metrics["loss"])
@@ -710,6 +721,40 @@ def test_each_rank_holds_its_blocks_and_the_same_results(runs, cid):
         assert bool(r[f"{cid}|blocks"]) and bool(r[f"{cid}|cache_blocks"])
         for key in (f"{cid}|loss", f"{cid}|prefill", f"{cid}|decode3"):
             assert np.array_equal(r[key], ranks[0][key])
+
+
+@pytest.mark.parametrize("cid", [c[0] for c in CASES])
+def test_the_priced_rank_records_the_live_collectives(runs, cid):
+    """Rank 0's collectives in one train step (calls and input bytes by
+    kind, ``runtime.mesh.collective_stats``) equal those that rank 0 of
+    an ``AbstractMesh`` of the same shape records for the same step on
+    ``meta`` tensors (``AbstractMesh.at(0)``).  The priced rank takes
+    NCCL's path; gloo, which has no reduce-scatter, runs each as an
+    all-reduce of the same input and takes its block, so its
+    reduce-scatters count as all-reduces here."""
+    _, arch, profile, shape, b = BY_ID[cid]
+    config = port_config(arch, profile)
+    rank = AbstractMesh(shape, ("data", "model")).at(0)
+    model = build_model(config, rank)
+    params = model.params()
+    state = TrainState(params, init_opt_state(params, OptConfig(**OPT)))
+    batch = {k: torch.empty(v.shape, dtype=torch.as_tensor(v).dtype,
+                            device="meta")
+             for k, v in make_inputs(config, b).items()}
+    make_train_step(model, OptConfig(**OPT))(state, batch)
+    priced = {}
+    for r in rank.records:
+        kind = "all_reduce" if r.kind == "reduce_scatter" else r.kind
+        entry = priced.setdefault(kind, {"calls": 0, "bytes": 0})
+        entry["calls"] += 1
+        entry["bytes"] += r.in_bytes
+    prefix = f"{cid}|collectives|"
+    live = {}
+    for key, value in runs.ranks[0].items():
+        if key.startswith(prefix):
+            kind, what = key[len(prefix):].split("|")
+            live.setdefault(kind, {})[what] = int(value)
+    assert live and priced == live
 
 
 @pytest.mark.parametrize("cid", MOE_CASES)

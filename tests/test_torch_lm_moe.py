@@ -16,7 +16,10 @@ package's, with the reference's weights carried across.
   _aux``: Switch aux >= 1 at balance);
 * ties: zero router weights make every probability equal, and the
   lowest expert indices must be chosen, as ``jax.lax.top_k`` chooses;
-* the combine: bit for bit the reference's ``segment_sum`` in bfloat16.
+* the combine: bit for bit the reference's ``segment_sum`` in bfloat16;
+* the loss and its gradient on ``meta`` tensors (the dry-run's device):
+  the aux loss counts the assignments with a static-shape scatter-add,
+  where ``torch.bincount`` has no ``meta`` kernel.
 """
 import numpy as np
 import pytest
@@ -185,6 +188,20 @@ def test_aux_loss_with_drops():
     assert float(metrics["aux"]) >= 1.0 - 1e-3
     np.testing.assert_allclose(float(metrics["aux"]), float(want["aux"]),
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_loss_and_gradient_run_on_meta(name):
+    config = get_arch(name).smoke_config()
+    model = build_model(config, device="meta")
+    leaves = [t.requires_grad_(True) for _, t in
+              cm.tree_leaves_with_path(model.params(), torch.is_tensor)]
+    tokens = torch.empty((2, 16), dtype=torch.int32, device="meta")
+    loss, metrics = model.loss(model.params(), {"tokens": tokens,
+                                                "labels": tokens})
+    grads = torch.autograd.grad(loss, leaves)
+    assert loss.device.type == "meta" and metrics["aux"].shape == ()
+    assert [g.shape for g in grads] == [t.shape for t in leaves]
 
 
 def test_top_k_breaks_ties_toward_the_lower_index():
