@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.connectivity import frontier as fr
 from repro_torch.connectivity import minmap as lab
 from repro_torch.kernels.contour_mm import converged as cv
@@ -203,7 +204,12 @@ def contour_labels(
     step = _make_step(variant, warmup, async_compress, backend, fuse)
     loop = cv.loop_ops(backend)
     device = src.device
-    L = lab.resolve_init_labels(init_labels, n_vertices, device, src.dtype)
+    with trace.span("contour.init"):
+        L = lab.resolve_init_labels(init_labels, n_vertices, device,
+                                    src.dtype)
+        if not adaptive:
+            state = cv.loop_state(device)
+            done = cv.done_word(state)
 
     if adaptive:
         sample_m = None
@@ -219,9 +225,6 @@ def contour_labels(
                 torch.tensor(done, device=device),
                 torch.tensor(visited, dtype=torch.float32, device=device))
 
-    state = cv.loop_state(device)
-    done = cv.done_word(state)
-
     def body(it, L):
         L_new = step(L, it, src, dst, done=done)
         if sync:  # Alg. 1 line 10: no label change
@@ -231,11 +234,13 @@ def contour_labels(
         return L_new
 
     L = cv.device_loop(body, L, state, max_iters)
-    # Final compression: interior vertices of chains off the edge endpoints
-    # may still be one hop from their star root.
-    L = loop.pointer_jump(L)
-    it, done = cv.loop_result(state)
-    return L, it, done, mm_ops.edges_visited(it, int(src.shape[0]), device)
+    with trace.span("contour.finish"):
+        # Final compression: interior vertices of chains off the edge
+        # endpoints may still be one hop from their star root.
+        L = loop.pointer_jump(L)
+        it, done = cv.loop_result(state)
+        return L, it, done, mm_ops.edges_visited(it, int(src.shape[0]),
+                                                 device)
 
 
 def _make_fleet_step(variant: str, warmup: int, async_compress: int,

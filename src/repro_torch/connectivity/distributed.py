@@ -52,6 +52,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace
 from repro_torch.connectivity import frontier as fr
 from repro_torch.connectivity import minmap as lab
 from repro_torch.graphs.structs import Graph
@@ -143,7 +144,9 @@ def _adaptive_loop(L, src, dst, group, *, n_vertices: int, active0: int,
         visited = visited + bounds[0] * local_rounds
         ok = _agreed(fr.masked_converged_early(L, src, dst, active_m,
                                                loop.converged_early), group)
-        done = bool(fr.gate_sampling_done(ok.item(), it, sampling))
+        with trace.span("read.frontier"):
+            ok = ok.item()
+        done = bool(fr.gate_sampling_done(ok, it, sampling))
         it += 1
         if not done and it < max_iters:
             # L is replicated after the all-reduce, so every rank agrees

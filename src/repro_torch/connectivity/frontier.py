@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels.contour_mm import converged as cv
 
 # The deterministic sampling prefix is m // SAMPLE_PREFIX_DENOM edges (at
@@ -114,8 +115,10 @@ def _prepare_kout(src, dst, n_vertices, k):
         return src, dst, 0
     sampled = (_occurrence_rank(src) < k) | (_occurrence_rank(dst) < k)
     out_s, out_d, sample_m = stable_partition(src, dst, sampled)
+    with trace.span("read.sample_width"):
+        sample_m = int(sample_m)
     # >= 1: rank 0 of any endpoint is always sampled
-    return out_s, out_d, max(int(sample_m), 1)
+    return out_s, out_d, max(sample_m, 1)
 
 
 def _prepare_bfs(src, dst, n_vertices, k):
@@ -141,8 +144,10 @@ def _prepare_bfs(src, dst, n_vertices, k):
                                          include_self=True)
     sampled = (reached[src] | reached[dst]) > 0
     out_s, out_d, sample_m = stable_partition(src, dst, sampled)
+    with trace.span("read.sample_width"):
+        sample_m = int(sample_m)
     # the top-degree seed has an incident edge whenever m > 0
-    return out_s, out_d, max(int(sample_m), 1)
+    return out_s, out_d, max(sample_m, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +198,10 @@ def prepare_sampling(name: str, src: torch.Tensor, dst: torch.Tensor,
         raise ValueError(f"sampling k must be >= 1, got {k}")
     out_s, out_d, sample_m = get_sampling_strategy(name).prepare(
         src, dst, n_vertices, k)
+    if isinstance(sample_m, torch.Tensor):
+        # a registered strategy's width still on the device
+        with trace.span("read.sample_width"):
+            sample_m = int(sample_m)
     return out_s, out_d, int(sample_m)
 
 
@@ -230,8 +239,10 @@ def contract_edges(
     else:
         retire = (rs == only_label) & (rd == only_label)
     out_s, out_d, n_keep = stable_partition(rs, rd, ~retire)
+    with trace.span("read.survivors"):
+        n_keep = int(n_keep)
     return (torch.cat([out_s, src[active_m:]]),
-            torch.cat([out_d, dst[active_m:]]), int(n_keep))
+            torch.cat([out_d, dst[active_m:]]), n_keep)
 
 
 def masked_converged_early(L: torch.Tensor, src: torch.Tensor,
@@ -312,7 +323,10 @@ def compress_full(L: torch.Tensor, loop: Optional[cv.LoopOps] = None, *,
     while True:
         jumped = (loop.pointer_jump(L) if spare is None
                   else loop.pointer_jump(L, out=spare))
-        if bool(loop.labels_unchanged(jumped, L)):
+        unchanged = loop.labels_unchanged(jumped, L)
+        with trace.span("read.star_forest"):
+            unchanged = bool(unchanged)
+        if unchanged:
             return L
         spare = L if owned else None
         L, owned = jumped, True
@@ -368,8 +382,10 @@ def advance(s: FrontierState, step, *, sample_m: int, sampling: int,
     s.L = step(L, s.it, src, dst, limit, **({"spare": L} if s.owned else {}))
     s.owned = s.owned or s.L is not L
     s.visited = np.float32(s.visited + np.float32(limit))
-    s.done = bool(masked_converged_early(s.L, s.src, s.dst, s.active_m,
-                                         s.loop.converged_early))
+    done = masked_converged_early(s.L, s.src, s.dst, s.active_m,
+                                  s.loop.converged_early)
+    with trace.span("read.frontier"):
+        s.done = bool(done)
     s.it += 1
     if not s.done and s.it < max_iters:
         s.src, s.dst, s.active_m = apply_compaction(

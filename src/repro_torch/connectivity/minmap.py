@@ -17,6 +17,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import trace
+
 
 def gather_chain(L: torch.Tensor, idx: torch.Tensor, order: int
                  ) -> Tuple[torch.Tensor, ...]:
@@ -96,7 +98,8 @@ def check_labels_nonnegative(labels: torch.Tensor) -> None:
     plain path and out of bounds in the CUDA kernels.
     """
     if labels.numel():
-        lo = int(labels.min())
+        with trace.span("read.warm_start_min"):
+            lo = int(labels.min())
         if lo < 0:
             raise ValueError(
                 f"warm-start labels must be >= 0, got minimum {lo}; "

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.connectivity import minmap
 from repro_torch.connectivity.options import SolveOptions
 from repro_torch.connectivity.registry import SolverSpec, get_solver
@@ -78,15 +79,18 @@ def make_result(labels, iterations, converged, edges_visited=None,
     ``solve_batch`` and the streaming engine's ``snapshot()``.
     """
     device = labels.device
-    return ComponentResult(
-        labels=labels,
-        iterations=torch.as_tensor(iterations, device=device).to(torch.int32),
-        converged=torch.as_tensor(converged, device=device).to(torch.bool),
-        batch_sizes=batch_sizes,
-        edges_visited=(None if edges_visited is None else
-                       torch.as_tensor(edges_visited, device=device)
-                       .to(torch.float32)),
-        provenance=(tuple(provenance) if provenance else None))
+    with trace.span("solve.result"):
+        return ComponentResult(
+            labels=labels,
+            iterations=torch.as_tensor(iterations,
+                                       device=device).to(torch.int32),
+            converged=torch.as_tensor(converged,
+                                      device=device).to(torch.bool),
+            batch_sizes=batch_sizes,
+            edges_visited=(None if edges_visited is None else
+                           torch.as_tensor(edges_visited, device=device)
+                           .to(torch.float32)),
+            provenance=(tuple(provenance) if provenance else None))
 
 
 def _resolve(options: Optional[SolveOptions],
@@ -138,13 +142,15 @@ def solve(
         ``solve(g, variant="C-m")``.  An unknown field raises
         ``TypeError``.
     """
-    opts, spec = _resolve(options, overrides)
-    init = resolve_warm_start(
-        warm_start if warm_start is not None else opts.warm_start,
-        graph.n_vertices)
-    if init is not None and not spec.supports_warm_start:
-        raise ValueError(f"solver {spec.name!r} does not support warm "
-                         "starts")
-    out = spec.fn(graph, opts, init)
-    provenance = out[4] if len(out) > 4 else None
-    return make_result(*solver_output(out), provenance=provenance)
+    with trace.span("solve"):
+        with trace.span("solve.resolve"):
+            opts, spec = _resolve(options, overrides)
+            init = resolve_warm_start(
+                warm_start if warm_start is not None else opts.warm_start,
+                graph.n_vertices)
+        if init is not None and not spec.supports_warm_start:
+            raise ValueError(f"solver {spec.name!r} does not support warm "
+                             "starts")
+        out = spec.fn(graph, opts, init)
+        provenance = out[4] if len(out) > 4 else None
+        return make_result(*solver_output(out), provenance=provenance)

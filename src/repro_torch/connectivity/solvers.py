@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.connectivity import contour as _contour
 from repro_torch.connectivity import distributed as _distributed
 from repro_torch.connectivity import fastsv as _fastsv
@@ -55,12 +56,14 @@ def resolve_backend_plan(n_vertices: int, n_edges: int, device, opts):
     plan also carries the streaming chunk bucket (``chunk_bucket``),
     unless the pinned plan set one.
     """
-    plan = _planner.resolve_plan(n_vertices, n_edges, backend=opts.backend,
-                                 plan=opts.plan, device=device)
-    if opts.algorithm in _OOCORE_NAMES and plan.chunk_bucket == 0:
-        plan = plan.replace(chunk_bucket=oocore_chunk_bucket(
-            n_edges, requested=opts.oocore_chunk_edges))
-    return plan
+    with trace.span("solve.plan"):
+        plan = _planner.resolve_plan(n_vertices, n_edges,
+                                     backend=opts.backend, plan=opts.plan,
+                                     device=device)
+        if opts.algorithm in _OOCORE_NAMES and plan.chunk_bucket == 0:
+            plan = plan.replace(chunk_bucket=oocore_chunk_bucket(
+                n_edges, requested=opts.oocore_chunk_edges))
+        return plan
 
 
 def resolve_plan(graph, opts):
@@ -176,7 +179,9 @@ def device_degree_skew(src, dst, n_vertices: int) -> float:
     deg = (torch.bincount(src, minlength=n_vertices)
            + torch.bincount(dst, minlength=n_vertices))
     mean = 2.0 * m / n_vertices
-    return float(int(deg.max())) / mean
+    with trace.span("read.degree_skew"):
+        top = int(deg.max())
+    return float(top) / mean
 
 
 def auto_choice(n_vertices: int, n_edges: int, opts, degree_skew):

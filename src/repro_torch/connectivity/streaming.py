@@ -63,6 +63,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.connectivity import distributed as dist_cc
 from repro_torch.connectivity import frontier as fr
 from repro_torch.connectivity import minmap as lab
@@ -332,9 +333,10 @@ class StreamingConnectivity:
         # device-side assert poisons the context); numpy input is checked
         # on the host, device input with one read of its bounds
         if isinstance(src, torch.Tensor):
-            lo, hi = torch.stack([torch.minimum(src.min(), dst.min()),
-                                  torch.maximum(src.max(), dst.max())]
-                                 ).tolist()
+            bounds = torch.stack([torch.minimum(src.min(), dst.min()),
+                                  torch.maximum(src.max(), dst.max())])
+            with trace.span("read.batch_bounds"):
+                lo, hi = bounds.tolist()
         else:
             hi = int(max(src.max(), dst.max()))
             lo = int(min(src.min(), dst.min()))
@@ -518,7 +520,9 @@ class StreamingConnectivity:
         if self._n_components is None or self._n_components[0] is not snap:
             seen = torch.zeros(self._n, dtype=torch.bool, device=self._device)
             seen[snap.labels.long()] = True
-            self._n_components = (snap, int(seen.sum()))
+            count = seen.sum()
+            with trace.span("read.n_components"):
+                self._n_components = (snap, int(count))
         return self._n_components[1]
 
     # -- repair ----------------------------------------------------------

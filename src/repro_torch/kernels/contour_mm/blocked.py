@@ -76,6 +76,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import _build
 from repro_torch.kernels.contour_mm import fleet
 
@@ -175,14 +176,17 @@ def launch(fn, *args, wrapper, check: bool, what: str,
     id outside ``[0, len(L))``."""
     n = int(L.shape[0])
     err = torch.zeros(1, dtype=torch.int32, device=L.device) if check else None
-    with torch.cuda.device(L.device):
+    with trace.span("launch.", fn.__name__), torch.cuda.device(L.device):
         stream = torch.cuda.current_stream(L.device).cuda_stream
         rc = fn(*args, n, None if err is None else err.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
     wrapper.launches += 1
-    if err is not None and int(err.item()):
-        raise IndexError(f"{what} outside [0, {n})")
+    if err is not None:
+        with trace.span("read.launch_check"):
+            bad = int(err.item())
+        if bad:
+            raise IndexError(f"{what} outside [0, {n})")
 
 
 def edge_count(m: int, edge_limit) -> int:
@@ -201,7 +205,9 @@ def _counter(counts: bool, device: torch.device) -> Optional[torch.Tensor]:
 def _result(out: torch.Tensor, counter: Optional[torch.Tensor]):
     if counter is None:
         return out
-    return out, dict(zip(COUNTERS, counter.tolist()))
+    with trace.span("read.counts"):
+        values = counter.tolist()
+    return out, dict(zip(COUNTERS, values))
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +529,7 @@ def launch_counted(fn, *args, wrapper, device: torch.device) -> None:
     """Launch ``fn`` on the current stream and count it on ``wrapper``
     (the launchers that take no range flag: the fleet's sweeps and the
     loop's kernels, ``converged.py``)."""
-    with torch.cuda.device(device):
+    with trace.span("launch.", fn.__name__), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:

@@ -60,6 +60,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.connectivity import minmap
 from repro_torch.kernels import _build
 from repro_torch.kernels.contour_mm import blocked, fleet
@@ -125,7 +126,8 @@ def done_word(state: torch.Tensor) -> torch.Tensor:
 def read_loop(state: torch.Tensor) -> Tuple[bool, int]:
     """``(done, it)`` on the host: one 8-byte copy, which waits for every
     iteration enqueued before it."""
-    done, it = state[DONE:IT + 1].tolist()
+    with trace.span("read.loop"):
+        done, it = state[DONE:IT + 1].tolist()
     return bool(done), it
 
 
@@ -148,12 +150,18 @@ def device_loop(body, carry, state: torch.Tensor, max_iters: int):
     state's ``it`` up to that iteration.
     """
     launched = 0
-    while launched < max_iters:
-        for it in range(launched, min(launched + CHUNK, max_iters)):
-            carry = body(it, carry)
-        launched = min(launched + CHUNK, max_iters)
-        if read_loop(state)[0]:
-            break
+    with trace.span("contour.loop"):
+        while launched < max_iters:
+            with trace.span("loop.chunk"):
+                for it in range(launched, min(launched + CHUNK, max_iters)):
+                    carry = body(it, carry)
+            trace.count("loop.enqueued", min(CHUNK, max_iters - launched))
+            launched = min(launched + CHUNK, max_iters)
+            done, reached = read_loop(state)
+            if done:
+                break
+        if launched:
+            trace.count("loop.iterations", reached)
     return carry
 
 

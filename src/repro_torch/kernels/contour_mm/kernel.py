@@ -58,6 +58,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import _build
 from repro_torch.kernels.contour_mm.blocked import (check_done, check_int32,
                                                     edge_count, frozen,
@@ -244,7 +245,9 @@ def sweep(L: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                tally.data_ptr() if counts else None, done_ptr, wrapper=mm2,
                check=check, what=_IDS, L=out)
     if counts:
-        return out, dict(zip(COUNTERS, tally.tolist()))
+        with trace.span("read.counts"):
+            values = tally.tolist()
+        return out, dict(zip(COUNTERS, values))
     return out
 
 
